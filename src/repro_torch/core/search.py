@@ -1,0 +1,503 @@
+"""Batched beam-expansion graph search in PyTorch (the serving hot path).
+
+The counterpart of ``repro.core.search``: the paper's Algorithm 1/2
+restructured as ONE loop over a whole query batch (DESIGN.md §3).
+
+* The candidate queue C and result queue T collapse into one sorted pool of
+  size ``efs`` with per-slot expanded flags.
+* Per-node state is a dense ``[B, n+1]`` uint8 status array (0 unvisited /
+  1 visited / 2 pruned), allocated once per batch.
+* Each iteration picks the best W (``SearchSpec.beam_width``) unexpanded
+  pool entries per query, gathers their adjacency into a ``[B, W*M]``
+  neighbour tile, lets the router prune lanes on stored edge distances,
+  computes exact distances for the survivors, writes the visit status and
+  merges the tile into the pool.
+* ``SearchSpec.engine`` dispatches the tile work:
+    - ``"torch"`` — plain PyTorch ops (the counterpart of ``"jnp"``);
+    - ``"fused"`` — the ``fused_expand`` kernel (estimate + prune +
+      conditional row load + exact distance) and the ``pool_merge`` kernel
+      (the counterpart of ``"pallas"``).  On CPU tensors the kernel wrappers
+      run their plain versions.
+
+The loop runs eagerly: its condition (some query not done, fewer than
+``max_hops`` iterations) is read on the host once per iteration, and
+``SearchResult.iters`` reports how many there were.
+
+Translation notes against the JAX engine:
+
+* beam pick: ``lax.top_k`` takes the lower index on ties, which
+  ``torch.sort(..., stable=True)`` reproduces (``torch.topk`` does not
+  promise it);
+* ``jnp.lexsort((id, dist))`` is a stable sort by id followed by a stable
+  sort by distance;
+* ids, counters and the ``id*4 + flags`` pool payload stay int32;
+* the hierarchy descent (``vmap`` of per-query ``while_loop``s in JAX) is
+  one batched loop per layer over an ``improved`` mask; a query adds to its
+  distance count only while it still improves;
+* the exact distance is ``repro_torch.kernels.ref.l2sq_rows``, which sums in
+  the ``fused_expand`` kernel's order, so both engines see bit-equal
+  distances on the card.
+
+Pad-row sentinel: ``graph_device_arrays`` appends one zero vector at row N;
+adjacency pad slots point at it, and pool slots holding no candidate carry
+id N and distance +inf.
+"""
+from __future__ import annotations
+
+import weakref
+from typing import Any, Dict, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import GraphIndex
+from repro_torch.core.routers import RouterContext, get_router
+from repro_torch.core.spec import SearchSpec
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import l2sq_rows
+
+STATUS_UNVISITED = 0
+STATUS_VISITED = 1
+STATUS_PRUNED = 2
+
+_I32 = torch.int32
+
+
+class SearchResult(NamedTuple):
+    ids: torch.Tensor         # [B, efs] int32, N = empty
+    dists: torch.Tensor       # [B, efs] ranking distance
+    dist_calls: torch.Tensor  # [B] int32 exact distance evaluations
+    est_calls: torch.Tensor   # [B] int32 router estimates evaluated
+    hops: torch.Tensor        # [B] int32 node expansions
+    iters: int                # batch-level hop-loop iterations
+
+
+def graph_device_arrays(g: GraphIndex, device: DeviceLike = None) -> Dict[str, Any]:
+    """Copy a GraphIndex to ``device`` with a sentinel pad row at index N.
+
+    Row N of ``vectors`` (an all-zero vector, norm 1) is the sentinel every
+    masked lane resolves to: adjacency pad slots point at it, dead beam
+    slots expand it (its neighbour list is all pad), and pool slots holding
+    no candidate carry id N.
+    """
+    dev = resolve_device(device)
+    n, d = g.n, g.dim
+    vecs = np.concatenate([g.vectors, np.zeros((1, d), np.float32)], axis=0)
+    nbrs = np.concatenate([g.neighbors, np.full((1, g.max_degree), n, np.int32)], axis=0)
+    ed = np.concatenate([g.edge_eu_dist, np.full((1, g.max_degree), np.inf,
+                                                 g.edge_eu_dist.dtype)], axis=0)
+    norms = g.norms if g.norms is not None else np.linalg.norm(g.vectors, axis=1)
+    norms = np.concatenate([norms.astype(np.float32), np.ones(1, np.float32)])
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    out = {"vectors": t(vecs), "neighbors": t(nbrs.astype(np.int32)),
+           "edge_eu": t(ed), "norms": t(norms), "entry": int(g.entry_point),
+           "n": n}
+    # HNSW hierarchy: id->row maps + per-layer adjacency (top..1)
+    if g.upper_neighbors:
+        pos_maps, layer_nbrs = [], []
+        for ids, mat in zip(g.upper_ids, g.upper_neighbors):
+            pos = np.full(n + 1, -1, dtype=np.int32)
+            pos[ids] = np.arange(len(ids), dtype=np.int32)
+            pos_maps.append(t(pos))
+            layer_nbrs.append(t(np.concatenate(
+                [mat, np.full((1, mat.shape[1]), n, np.int32)], axis=0)))
+        out["upper_pos"] = pos_maps
+        out["upper_nbrs"] = layer_nbrs
+    return out
+
+
+def _rank_tile(queries, X, metric):
+    """queries [B, d], X [B, L, d] -> ranking distances [B, L]."""
+    if metric == "l2":
+        return l2sq_rows(queries, X)
+    return 1.0 - torch.einsum("bld,bd->bl", X, queries)
+
+
+def _rank_to_eu(rank, nq, nx, metric):
+    if metric == "l2":
+        return torch.sqrt(torch.clamp_min(rank, 0.0))
+    return torch.sqrt(torch.clamp_min(nx * nx + nq * nq + 2.0 * rank - 2.0, 0.0))
+
+
+def _eu2_to_rank(eu2, nq, nx, metric):
+    if metric == "l2":
+        return eu2
+    return (eu2 - nx * nx - nq * nq + 2.0) / 2.0
+
+
+def _descend(arrays, queries, metric):
+    """Greedy 1-NN descent through the HNSW upper layers, batched.
+
+    Returns (entry [B] int32, d_entry [B], dist_calls [B] int32).  Each
+    layer runs while some query still improves; a query stops counting
+    distance calls once it no longer improves (``torch.argmin`` returns the
+    first minimum, as ``jnp.argmin`` does).
+    """
+    B = queries.shape[0]
+    dev, n = queries.device, arrays["n"]
+    vecs = arrays["vectors"]
+    cur = torch.full((B,), arrays["entry"], dtype=_I32, device=dev)
+    d_cur = _rank_tile(queries, vecs[cur.long()][:, None, :], metric)[:, 0]
+    calls = torch.ones((B,), dtype=_I32, device=dev)
+    for pos_map, lnbrs in zip(arrays.get("upper_pos", ()),
+                              arrays.get("upper_nbrs", ())):
+        improved = torch.ones((B,), dtype=torch.bool, device=dev)
+        while bool(improved.any()):
+            row = pos_map[cur.long()]
+            nb = lnbrs[torch.where(row >= 0, row, lnbrs.shape[0] - 1).long()]
+            live = nb < n
+            dists = _rank_tile(queries, vecs[nb.long()], metric)
+            dists = torch.where(live, dists, torch.full_like(dists, float("inf")))
+            calls = calls + torch.where(improved, live.sum(1, dtype=_I32), 0)
+            j = torch.argmin(dists, dim=1, keepdim=True)
+            dj = dists.gather(1, j)[:, 0]
+            better = improved & (dj < d_cur)
+            cur = torch.where(better, nb.gather(1, j)[:, 0], cur)
+            d_cur = torch.where(better, dj, d_cur)
+            improved = better
+    return cur, d_cur, calls
+
+
+def _first_occurrence(nbrs, valid, n):
+    """Keep only the first valid lane per distinct neighbour id (per row).
+
+    With a beam of W nodes the [B, W*M] tile can name the same neighbour
+    from two expansion nodes; sequential Algorithm 1 would visit it once, so
+    the tile must too.  Returns (first_mask, order, sorted_keys); the latter
+    two let _rescue_pruned_duplicates reuse the same sort.
+    """
+    key = torch.where(valid, nbrs, n + 1)
+    sk, order = torch.sort(key, dim=1, stable=True)
+    dup_sorted = torch.zeros_like(valid)
+    dup_sorted[:, 1:] = sk[:, 1:] == sk[:, :-1]
+    dup = torch.zeros_like(valid).scatter_(1, order, dup_sorted)
+    return valid & ~dup, order, sk
+
+
+def _rescue_pruned_duplicates(order, sk, prune):
+    """Within-tile error correction, reusing the dedup sort.
+
+    Returns (rescued, prune_final): ``rescued`` marks the SECOND valid lane
+    of each id whose first lane was pruned (it is computed exactly — the
+    paper's PRUNED-revisit rule collapsed into one tile); ``prune_final``
+    clears the prune mark for such rescued ids.
+    """
+    pr_s = prune.gather(1, order)
+    same = sk[:, 1:] == sk[:, :-1]
+    rescued_s = torch.zeros_like(prune)
+    rescued_s[:, 1:] = same & pr_s[:, :-1]
+    same_next = torch.zeros_like(prune)
+    same_next[:, :-1] = same
+    keep_prune_s = pr_s & ~same_next      # pruned ids with no second lane
+    rescued = torch.zeros_like(prune).scatter_(1, order, rescued_s)
+    prune_final = torch.zeros_like(prune).scatter_(1, order, keep_prune_s)
+    return rescued, prune_final
+
+
+def _lexsort_dist_id(d, i):
+    """Row-wise permutation sorting by (dist, id): stable by id, then by dist."""
+    o1 = torch.sort(i, dim=1, stable=True).indices
+    o2 = torch.sort(d.gather(1, o1), dim=1, stable=True).indices
+    return o1.gather(1, o2)
+
+
+def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
+                  tombstone=None) -> SearchResult:
+    """Whole-batch Algorithm 1/2 with W-wide beam expansion per iteration.
+
+    ``valid`` ([B] bool, optional) marks the real query lanes of a padded
+    batch: padded lanes start done, never expand a node, and count zero in
+    every counter.  ``tombstone`` ([n+1] bool, pad row False, optional)
+    marks deleted nodes: they keep routing, but are masked out of the
+    result pool after the loop (id -> n, dist -> +inf, re-sorted).
+    """
+    metric, efs, n = cfg.metric, cfg.efs, arrays["n"]
+    W, engine = cfg.beam_width, cfg.engine
+    rt = get_router(cfg.router)
+    if not 1 <= W <= efs:
+        raise ValueError("beam_width must be in [1, efs]")
+    if cfg.estimate == "angle" and not rt.prunes:
+        raise ValueError(f"estimate='angle' needs a pruning router, got "
+                         f"{cfg.router!r}")
+    if engine == "fused" and n >= 2 ** 29:
+        raise ValueError("the fused engine encodes ids as id*4+flags in "
+                         "int32: shard below 2^29 vectors or use "
+                         "engine='torch'")
+    dev = queries.device
+    vecs, norms = arrays["vectors"], arrays["norms"]
+    queries = queries.to(torch.float32).contiguous()
+    # the engine's cos(theta*) is an f32 value, as the JAX engine's traced
+    # f32 scalar is
+    cos_theta = float(np.float32(cos_theta))
+    B = queries.shape[0]
+    M = arrays["neighbors"].shape[1]
+    L = W * M
+    rows = torch.arange(B, device=dev)
+    inf = float("inf")
+
+    nq = (torch.linalg.norm(queries, dim=1) if metric != "l2"
+          else torch.ones((B,), dtype=torch.float32, device=dev))
+
+    if cfg.use_hierarchy:
+        entry, d_entry, calls0 = _descend(arrays, queries, metric)
+    else:
+        entry = torch.full((B,), arrays["entry"], dtype=_I32, device=dev)
+        d_entry = _rank_tile(queries, vecs[entry.long()][:, None, :], metric)[:, 0]
+        calls0 = torch.ones((B,), dtype=_I32, device=dev)
+
+    if valid is None:
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+    else:
+        valid = valid.to(device=dev, dtype=torch.bool)
+        done = ~valid                      # padded lanes are born done
+        calls0 = torch.where(valid, calls0, 0)
+
+    pool_d = torch.full((B, efs), inf, dtype=torch.float32, device=dev)
+    pool_d[:, 0] = d_entry
+    pool_id = torch.full((B, efs), n, dtype=_I32, device=dev)
+    pool_id[:, 0] = entry
+    pool_exp = torch.zeros((B, efs), dtype=torch.bool, device=dev)
+    status = torch.zeros((B, n + 1), dtype=torch.uint8, device=dev)
+    status[rows, entry.long()] = STATUS_VISITED
+    dcalls = calls0
+    ecalls = torch.zeros((B,), dtype=_I32, device=dev)
+    hops = torch.zeros((B,), dtype=_I32, device=dev)
+    iters = 0
+
+    prunes = rt.prunes
+    ct_eff = rt.cos_theta_eff(cos_theta)
+    rescue = W > 1 and prunes and rt.revisit_pruned and not rt.permanent
+    kernel_prunes = engine == "fused" and rt.kernel_estimate and not rescue
+    best_slot = torch.arange(L, device=dev)[None, :] < M
+
+    while iters < cfg.max_hops and not bool(done.all()):
+        # --- beam selection: best W unexpanded pool entries per query -----
+        cand = (~pool_exp) & (pool_id < n)
+        cand_d = torch.where(cand, pool_d, inf)
+        beam_d, beam_idx = torch.sort(cand_d, dim=1, stable=True)
+        beam_d, beam_idx = beam_d[:, :W], beam_idx[:, :W]
+        pool_full = pool_id[:, efs - 1] < n
+        upper = torch.where(pool_full, pool_d[:, efs - 1], inf)      # [B]
+        active = (~done) & (hops < cfg.max_hops)
+        slot_live = torch.isfinite(beam_d) & (beam_d <= upper[:, None]) \
+            & active[:, None]                                         # [B, W]
+        # keep the per-query hop budget exact
+        budget = cfg.max_hops - hops
+        slot_live = slot_live & (torch.cumsum(slot_live, dim=1, dtype=_I32)
+                                 <= budget[:, None])
+        done = done | ~slot_live.any(dim=1)
+
+        c = torch.where(slot_live, pool_id.gather(1, beam_idx), n)    # [B, W]
+        dc = pool_d.gather(1, beam_idx)                               # [B, W]
+        pool_exp.scatter_(1, beam_idx, pool_exp.gather(1, beam_idx) | slot_live)
+
+        # --- dense [B, W*M] neighbour tile ---------------------------------
+        cl = c.long()
+        nbrs = arrays["neighbors"][cl].reshape(B, L)                  # [B, L]
+        # stored edge distances may be bf16; the estimate math is f32
+        ed = arrays["edge_eu"][cl].to(torch.float32).reshape(B, L)
+        nbl = nbrs.long()
+        st = status.gather(1, nbl)                                    # [B, L]
+        lane_live = slot_live[:, :, None].expand(B, W, M).reshape(B, L)
+        lane_ok = (nbrs < n) & (st != STATUS_VISITED) & lane_live
+        if not rt.revisit_pruned:
+            lane_ok = lane_ok & (st != STATUS_PRUNED)
+        if W > 1:
+            first, dd_order, dd_keys = _first_occurrence(nbrs, lane_ok, n)
+        else:
+            first = lane_ok
+
+        dcq_eu = _rank_to_eu(dc, nq[:, None], norms[cl], metric)      # [B, W]
+        dcq_l = dcq_eu[:, :, None].expand(B, W, M).reshape(B, L)
+        nx = norms[nbl]                                               # [B, L]
+        if metric == "l2":
+            bound2 = upper[:, None].expand(B, L)
+        else:
+            # est_rank >= upper  <=>  est2 >= inverse rank->eu^2 per lane
+            bound2 = 2.0 * upper[:, None] + nx * nx + (nq * nq)[:, None] - 2.0
+
+        # --- router: estimate + prune (no neighbour row is read here) ------
+        if prunes:
+            try_prune = first & (st == STATUS_UNVISITED) & pool_full[:, None]
+            if W > 1 and cfg.beam_prune == "best":
+                # slot 0 is the node sequential search would expand now;
+                # only its lanes run the estimate test
+                try_prune = try_prune & best_slot
+            if rt.counts_est:
+                ecalls = ecalls + try_prune.sum(1, dtype=_I32)
+        else:
+            try_prune = torch.zeros_like(first)
+
+        if not prunes or kernel_prunes:
+            prune = torch.zeros_like(first)
+        else:
+            ctx = RouterContext(
+                arrays=arrays, queries=queries, nq=nq, c=c, dc=dc, nbrs=nbrs,
+                ed=ed, dcq=dcq_l, nx=nx, try_prune=try_prune, upper=upper,
+                cos_theta=cos_theta, metric=metric, n=n, beam_width=W,
+                max_degree=M)
+            prune = try_prune & (rt.estimate_rank(ctx) >= upper[:, None])
+
+        if rescue:
+            # within-tile error correction (paper Alg. 2): a second valid
+            # lane of a pruned id computes, and the id ends VISITED
+            rescued, prune_kept = _rescue_pruned_duplicates(dd_order, dd_keys,
+                                                            prune)
+            compute = (first & ~prune) | rescued
+            prune = prune_kept
+        else:
+            compute = first & ~prune
+
+        # --- exact fp32 distances (pruned/masked lanes load no row) ---------
+        if engine == "fused":
+            d2eu, prune8 = ops.fused_expand(
+                nbrs, queries, ed, dcq_l, bound2, ct_eff, vecs,
+                eval_mask=compute,
+                prune_eligible=try_prune if kernel_prunes
+                else torch.zeros_like(try_prune))
+            if kernel_prunes:
+                # the kernel made the prune decision and skipped those rows
+                prune = prune8 != 0
+                compute = compute & ~prune
+            exact = _eu2_to_rank(d2eu, nq[:, None], nx, metric)
+        else:
+            exact = _rank_tile(queries, vecs[torch.where(compute, nbl, n)],
+                               metric)
+        new_d = torch.where(compute, exact, inf)
+        dcalls = dcalls + compute.sum(1, dtype=_I32)
+
+        # --- status scatter: unchanged lanes write the pad column's own
+        # value to the pad column, so the scatter stays deterministic -------
+        change = compute | prune
+        if rt.permanent:
+            new_st = torch.full_like(st, STATUS_VISITED)
+        else:
+            new_st = torch.where(compute, STATUS_VISITED, STATUS_PRUNED
+                                 ).to(torch.uint8)
+        pad_val = status[:, n:n + 1].expand(B, L)
+        status.scatter_(1, torch.where(change, nbl, n),
+                        torch.where(change, new_st, pad_val))
+
+        # --- pool merge (merge-then-truncate == evolving-bound insertion) --
+        new_id = torch.where(compute, nbrs, n)
+        if engine == "fused":
+            # the expanded flag rides the merge in the id's low bits:
+            # id*4 + approx*2 + expanded; the approx bit (the JAX engine's
+            # sq8 path) is 0 on this exact-only path
+            enc_pool = pool_id * 4 + pool_exp.to(_I32)
+            pool_d, enc = ops.pool_merge(pool_d, enc_pool, new_d, new_id * 4)
+            pool_id = enc >> 2
+            pool_exp = (enc & 1) == 1
+        else:
+            md = torch.cat([pool_d, new_d], dim=1)
+            mi = torch.cat([pool_id, new_id], dim=1)
+            me = torch.cat([pool_exp, torch.zeros_like(compute)], dim=1)
+            # lexicographic (dist, id): the kernel's tie-break
+            order = _lexsort_dist_id(md, mi)[:, :efs]
+            pool_d, pool_id, pool_exp = (md.gather(1, order),
+                                         mi.gather(1, order),
+                                         me.gather(1, order))
+
+        hops = hops + slot_live.sum(1, dtype=_I32)
+        iters += 1
+
+    if tombstone is not None:
+        # emission-time masking: dead entries routed normally; here they
+        # collapse to the pad sentinel and sort behind the survivors
+        dead = tombstone.to(dev)[pool_id.long()]
+        pool_d = torch.where(dead, inf, pool_d)
+        pool_id = torch.where(dead, n, pool_id)
+        order = _lexsort_dist_id(pool_d, pool_id)
+        pool_d, pool_id = pool_d.gather(1, order), pool_id.gather(1, order)
+    if valid is not None:
+        dcalls, ecalls, hops = (torch.where(valid, a, 0)
+                                for a in (dcalls, ecalls, hops))
+    return SearchResult(ids=pool_id, dists=pool_d, dist_calls=dcalls,
+                        est_calls=ecalls, hops=hops, iters=iters)
+
+
+# --- engine cache ------------------------------------------------------------
+# Device arrays are cached per (graph, device), shared by every spec that
+# searches that graph; bound engines per (graph identity, canonical spec,
+# router, tombstones, device).  Weakrefs guard against id() reuse after gc,
+# and dead-graph entries are purged on every call so their device tensors
+# do not stay pinned.
+_ARRAYS_CACHE: "dict[tuple, tuple]" = {}
+_ENGINE_CACHE: "dict[tuple, tuple]" = {}
+_ENGINE_CACHE_MAX = 16
+
+
+def _purge_dead_cache_entries():
+    """Drop every cache entry tied to a collected graph."""
+    for k in [k for k, v in _ARRAYS_CACHE.items() if v[0]() is None]:
+        del _ARRAYS_CACHE[k]
+    for k in [k for k, v in _ENGINE_CACHE.items()
+              if v[0]() is None or (k[0], k[4]) not in _ARRAYS_CACHE]:
+        del _ENGINE_CACHE[k]
+
+
+def _graph_arrays_cached(g: GraphIndex, dev: torch.device):
+    key = (id(g), str(dev))
+    hit = _ARRAYS_CACHE.get(key)
+    if hit is not None and hit[0]() is g:
+        return hit[1]
+    arrays = graph_device_arrays(g, dev)
+    _ARRAYS_CACHE[key] = (weakref.ref(g), arrays)
+    return arrays
+
+
+def build_search_fn(g: GraphIndex, cfg: SearchSpec, tombstones: bool = False,
+                    device: DeviceLike = None):
+    """Returns (arrays, fn) for searching ``g`` under ``cfg`` on ``device``.
+
+    ``fn(queries [B, d], cos_theta) -> SearchResult``; with
+    ``tombstones=True`` it is ``fn(queries, cos_theta, tombstone [n+1])``.
+    Cached per (graph identity, canonical spec, router instance,
+    tombstones, device): a repeat call with the same live graph and an
+    equal spec returns the same callable and the same device arrays.
+    """
+    dev = resolve_device(device)
+    _purge_dead_cache_entries()
+    cfg = cfg.canonical()
+    rt = get_router(cfg.router)
+    key = (id(g), cfg, rt, tombstones, str(dev))
+    hit = _ENGINE_CACHE.get(key)
+    if hit is not None:
+        ref, arrays, fn = hit
+        if ref() is g:
+            return arrays, fn
+        del _ENGINE_CACHE[key]
+
+    arrays = _graph_arrays_cached(g, dev)
+
+    def _queries(q):
+        return torch.as_tensor(q, dtype=torch.float32, device=dev)
+
+    if tombstones:
+        def run(queries, cos_theta, tombstone):
+            return _search_batch(arrays, _queries(queries), cos_theta, cfg,
+                                 tombstone=torch.as_tensor(tombstone,
+                                                           device=dev))
+    else:
+        def run(queries, cos_theta):
+            return _search_batch(arrays, _queries(queries), cos_theta, cfg)
+
+    while len(_ENGINE_CACHE) >= _ENGINE_CACHE_MAX:
+        _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
+    _ENGINE_CACHE[key] = (weakref.ref(g), arrays, run)
+    return arrays, run
+
+
+def search_batch(g: GraphIndex, queries: np.ndarray, cfg: SearchSpec,
+                 cos_theta: float = 0.0, k: Optional[int] = None,
+                 device: DeviceLike = None) -> SearchResult:
+    """One-shot batched search (engine cached per (graph, spec, device))."""
+    _, fn = build_search_fn(g, cfg, device=device)
+    res = fn(queries, cos_theta)
+    if k is not None:
+        res = res._replace(ids=res.ids[:, :k], dists=res.dists[:, :k])
+    return res

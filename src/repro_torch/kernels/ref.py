@@ -1,0 +1,110 @@
+"""Plain PyTorch versions of the port's kernels (the CPU path and the
+oracles the CUDA kernels are held against on the card).
+
+Counterpart of ``repro.kernels.ref``.  Two deliberate orders make the
+kernels' outputs reproducible bit for bit in plain PyTorch:
+
+* ``l2sq_rows`` sums the squared differences in the CUDA kernel's order
+  (see its docstring), so the fused kernel's distances equal the plain
+  engine's exactly and the two engines walk the same graph path;
+* the edge-angle estimate is evaluated as
+  ``(ed*ed + dcq*dcq) - ((2*ed)*dcq)*ct`` with each product and sum rounded
+  separately (the CUDA kernel uses ``__fmul_rn``/``__fadd_rn``/``__fsub_rn``
+  so that nvcc cannot contract them into FMAs), then clamped at 0 with NaN
+  kept, as ``jnp.maximum`` keeps it.
+"""
+from __future__ import annotations
+
+import torch
+
+# The CUDA kernel reads a row as float4 chunks of 128 floats per warp pass:
+# lane t of pass j holds elements 128*j + 4*t + c, c = 0..3.
+_WARP = 32
+_VEC = 4
+_PASS = _WARP * _VEC
+
+
+def l2sq_rows(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distance of each query to its rows, in the kernel's order.
+
+    q ``[B, d]``, rows ``[B, L, d]`` -> ``[B, L]`` float32.  Per warp lane t
+    the kernel accumulates ``(q_e - x_e)^2`` over its elements e = 128*j +
+    4*t + c in (j, c) order, starting from 0, then sums the 32 lane partials
+    with a ``__shfl_xor_sync`` butterfly (strides 16, 8, 4, 2, 1).  Padding
+    d to a multiple of 128 with zeros adds exact zeros, so every d follows
+    the same formula.
+    """
+    B, L, d = rows.shape
+    diff = rows.to(torch.float32) - q.to(torch.float32)[:, None, :]
+    sq = diff * diff
+    pad = (-d) % _PASS
+    if pad:
+        sq = torch.nn.functional.pad(sq, (0, pad))
+    sq = sq.reshape(B, L, -1, _WARP, _VEC)
+    acc = torch.zeros((B, L, _WARP), dtype=torch.float32, device=rows.device)
+    for j in range(sq.shape[2]):
+        for c in range(_VEC):
+            acc = acc + sq[:, :, j, :, c]
+    width = _WARP
+    while width > 1:
+        width //= 2
+        acc = acc[..., :width] + acc[..., width:2 * width]
+    return acc[..., 0]
+
+
+def edge_angle_est2(ed, dcq, cos_theta: float) -> torch.Tensor:
+    """``max(ed^2 + dcq^2 - 2*ed*dcq*cos_theta, 0)`` in the kernels' order
+    (NaN propagates, as in ``jnp.maximum``)."""
+    est2 = (ed * ed + dcq * dcq) - ((2.0 * ed) * dcq) * float(cos_theta)
+    return torch.where(est2 < 0, torch.zeros_like(est2), est2)
+
+
+def crouting_prune_ref(ed, dcq, bound2, valid, cos_theta):
+    """dcq/bound2: [B] (broadcast) or per-lane [B, M] (beam tiles)."""
+    ed = ed.to(torch.float32)
+    dcq = dcq.to(torch.float32)
+    if dcq.ndim == 1:
+        dcq = dcq[:, None]
+    if bound2.ndim == 1:
+        bound2 = bound2[:, None]
+    est2 = edge_angle_est2(ed, dcq, cos_theta)
+    mask = (valid != 0) & (est2 >= bound2)
+    return est2, mask.to(torch.int8)
+
+
+def fused_expand_ref(nbrs, queries, ed, dcq, bound2, cos_theta, table,
+                     eval_mask, prune_eligible):
+    """Plain version of the fused CRouting expansion.
+
+    ``eval_mask``/``prune_eligible`` are taken as given: the ops wrapper has
+    already intersected them with "id in range" (the JAX oracle
+    ``repro.kernels.ref.fused_expand_ref`` does not intersect caller
+    masks; ``repro.kernels.ops.fused_expand`` does, and so does the port).
+    Lanes that are not evaluated or are pruned read the pad row (the
+    table's last row) here and report +inf.
+    """
+    n = table.shape[0]
+    if dcq.ndim == 1:
+        dcq = dcq[:, None]
+    if bound2.ndim == 1:
+        bound2 = bound2[:, None]
+    est2 = edge_angle_est2(ed.to(torch.float32), dcq.to(torch.float32),
+                           cos_theta)
+    prune = (prune_eligible != 0) & (est2 >= bound2)
+    fetch = (eval_mask != 0) & ~prune
+    safe = torch.where(fetch, nbrs, n - 1).long()
+    d2 = l2sq_rows(queries, table[safe])
+    d2 = torch.where(fetch, d2, torch.full_like(d2, float("inf")))
+    return d2, prune.to(torch.int8)
+
+
+def pool_merge_ref(pool_d, pool_i, new_d, new_i):
+    """Best P of the union of a sorted pool and new candidates, ordered by
+    (dist, id): a stable sort by id, then a stable sort by distance."""
+    d = torch.cat([pool_d, new_d], dim=1)
+    i = torch.cat([pool_i, new_i], dim=1)
+    o = torch.sort(i, dim=1, stable=True).indices
+    d, i = d.gather(1, o), i.gather(1, o)
+    o = torch.sort(d, dim=1, stable=True).indices
+    P = pool_d.shape[1]
+    return d.gather(1, o)[:, :P], i.gather(1, o)[:, :P]

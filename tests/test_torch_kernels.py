@@ -1,0 +1,233 @@
+"""The port's kernel wrappers and plain versions against the JAX oracles.
+
+On the CPU the wrappers in ``repro_torch.kernels.ops`` run the plain
+PyTorch versions, which are held here against ``repro.kernels.ref`` (and
+``pool_merge`` also against the Pallas kernel in interpret mode).  The JAX
+``fused_expand_pallas`` cannot run on the installed JAX (it uses
+``pltpu.TPUMemorySpace``, removed in JAX 0.9; ROADMAP Queue 3), so its
+oracle ``fused_expand_ref`` is the reference for ``fused_expand``.  The
+CUDA kernels themselves run only on the card: the ``gpu``-marked tests at
+the bottom skip without one (``chip_smoke.py`` runs the same checks).
+"""
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from repro.kernels import ref as jref
+from repro.kernels.pool_merge import pool_merge_pallas
+
+from repro_torch.kernels import build, ops, ref
+
+
+def _expand_inputs(seed, B, L, N, d, in_range=True):
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(N, d)).astype(np.float32)
+    table[-1] = 0.0
+    hi = N if in_range else N + 4
+    nbrs = rng.integers(0, hi, size=(B, L)).astype(np.int32)
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    ed = rng.uniform(0, 6, size=(B, L)).astype(np.float32)
+    ed[:, ::7] = np.inf
+    dcq = rng.uniform(0.5, 6, size=(B, L)).astype(np.float32)
+    b2 = rng.uniform(0, 40, size=(B, L)).astype(np.float32)
+    b2[0] = np.inf
+    ev = (rng.random((B, L)) < 0.7).astype(np.int8)
+    el = (rng.random((B, L)) < 0.6).astype(np.int8)
+    if in_range:
+        ev &= (nbrs < N)
+        el &= (nbrs < N)
+    return nbrs, q, ed, dcq, b2, table, ev, el
+
+
+@pytest.mark.parametrize("B,L,N,d", [(3, 8, 100, 16), (5, 16, 400, 64),
+                                     (4, 64, 300, 100), (2, 128, 50, 130)])
+def test_fused_expand_matches_jax_oracle(B, L, N, d):
+    nbrs, q, ed, dcq, b2, table, ev, el = _expand_inputs(B * L, B, L, N, d)
+    ct = 0.156
+    jd, jp = jref.fused_expand_ref(
+        jnp.asarray(nbrs), jnp.asarray(q), jnp.asarray(ed), jnp.asarray(dcq),
+        jnp.asarray(b2), ct, jnp.asarray(table), eval_mask=jnp.asarray(ev),
+        prune_eligible=jnp.asarray(el))
+    td, tp = ops.fused_expand(*map(torch.as_tensor, (nbrs, q, ed, dcq, b2)),
+                              ct, torch.as_tensor(table),
+                              eval_mask=torch.as_tensor(ev),
+                              prune_eligible=torch.as_tensor(el))
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+    jd = np.asarray(jd)
+    np.testing.assert_array_equal(np.isinf(jd), np.isinf(td.numpy()))
+    fin = np.isfinite(jd)
+    np.testing.assert_allclose(td.numpy()[fin], jd[fin], rtol=1e-6)
+    assert tp.dtype == torch.int8 and td.dtype == torch.float32
+
+
+def test_fused_expand_masks_out_of_range_ids():
+    """Unlike the JAX oracle, the wrapper intersects caller masks with the
+    in-range ids (as repro.kernels.ops.fused_expand does)."""
+    nbrs, q, ed, dcq, b2, table, ev, el = _expand_inputs(
+        1, 4, 32, 60, 16, in_range=False)
+    nbrs[1, :5] = -3
+    ones = np.ones_like(ev)
+    td, tp = ops.fused_expand(*map(torch.as_tensor, (nbrs, q, ed, dcq, b2)),
+                              0.3, torch.as_tensor(table),
+                              eval_mask=torch.as_tensor(ones),
+                              prune_eligible=torch.as_tensor(ones))
+    out = (nbrs < 0) | (nbrs >= 60)
+    assert out.any()
+    assert np.isinf(td.numpy()[out]).all() and not tp.numpy()[out].any()
+    # in-range lanes agree with the oracle given in-range masks
+    inr = (~out).astype(np.int8)
+    jd, jp = jref.fused_expand_ref(
+        jnp.asarray(np.where(out, 0, nbrs)), jnp.asarray(q), jnp.asarray(ed),
+        jnp.asarray(dcq), jnp.asarray(b2), 0.3, jnp.asarray(table),
+        eval_mask=jnp.asarray(inr), prune_eligible=jnp.asarray(inr))
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+    fin = np.isfinite(np.asarray(jd))
+    np.testing.assert_allclose(td.numpy()[fin], np.asarray(jd)[fin],
+                               rtol=1e-6)
+
+
+def test_fused_expand_default_masks_and_broadcast_lanes():
+    nbrs, q, ed, dcq, b2, table, _, _ = _expand_inputs(2, 3, 16, 40, 8)
+    dcq1, b21 = dcq[:, 0], b2[:, 0]
+    jd, jp = jref.fused_expand_ref(
+        jnp.asarray(nbrs), jnp.asarray(q), jnp.asarray(ed), jnp.asarray(dcq1),
+        jnp.asarray(b21), 0.5, jnp.asarray(table))
+    td, tp = ops.fused_expand(
+        *map(torch.as_tensor, (nbrs, q, ed, dcq1, b21)), 0.5,
+        torch.as_tensor(table))
+    np.testing.assert_array_equal(np.asarray(jp), tp.numpy())
+    fin = np.isfinite(np.asarray(jd))
+    np.testing.assert_array_equal(fin, np.isfinite(td.numpy()))
+    np.testing.assert_allclose(td.numpy()[fin], np.asarray(jd)[fin],
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("B,M", [(8, 128), (3, 40)])
+def test_crouting_prune_estimate_is_bit_equal(B, M):
+    rng = np.random.default_rng(B + M)
+    ed = rng.uniform(0, 5, size=(B, M)).astype(np.float32)
+    dcq = rng.uniform(0, 5, size=(B, M)).astype(np.float32)
+    b2 = rng.uniform(0, 30, size=(B, M)).astype(np.float32)
+    valid = (rng.random((B, M)) < 0.8).astype(np.int8)
+    je, jm = jref.crouting_prune_ref(*map(jnp.asarray, (ed, dcq, b2, valid)),
+                                     0.2)
+    te, tm = ref.crouting_prune_ref(*map(torch.as_tensor, (ed, dcq, b2, valid)),
+                                    0.2)
+    np.testing.assert_array_equal(np.asarray(je), te.numpy())
+    np.testing.assert_array_equal(np.asarray(jm), tm.numpy())
+
+
+def _merge_inputs(seed, B, P, L, n=1000):
+    rng = np.random.default_rng(seed)
+    pd = np.round(rng.uniform(0, 3, size=(B, P)), 1).astype(np.float32)
+    pi = (rng.integers(0, n, size=(B, P)) * 4
+          + rng.integers(0, 2, size=(B, P))).astype(np.int32)
+    pd[:, P // 2:], pi[:, P // 2:] = np.inf, n * 4
+    nd = np.round(rng.uniform(0, 3, size=(B, L)), 1).astype(np.float32)
+    ni = (rng.integers(0, n, size=(B, L)) * 4 + 2).astype(np.int32)
+    nd[:, ::3], ni[:, ::3] = np.inf, n * 4
+    order = np.lexsort((pi, pd), axis=1)
+    pd = np.take_along_axis(pd, order, axis=1)
+    pi = np.take_along_axis(pi, order, axis=1)
+    return pd, pi, nd, ni
+
+
+@pytest.mark.parametrize("B,P,L", [(8, 16, 16), (8, 24, 64), (16, 100, 128),
+                                   (3, 64, 256)])
+def test_pool_merge_matches_jax_oracle_and_pallas(B, P, L):
+    pd, pi, nd, ni = _merge_inputs(P + L, B, P, L)
+    td, ti = ops.pool_merge(*map(torch.as_tensor, (pd, pi, nd, ni)))
+    jd, ji = jref.pool_merge_ref(*map(jnp.asarray, (pd, pi, nd, ni)))
+    np.testing.assert_array_equal(np.asarray(jd), td.numpy())
+    np.testing.assert_array_equal(np.asarray(ji), ti.numpy())
+    if B % 8 == 0 and P + L <= 256:
+        kd, ki = pool_merge_pallas(*map(jnp.asarray, (pd, pi, nd, ni)),
+                                   interpret=True)
+        np.testing.assert_array_equal(np.asarray(kd), td.numpy())
+        np.testing.assert_array_equal(np.asarray(ki), ti.numpy())
+
+
+def test_l2sq_rows_follows_the_kernel_order():
+    """ref.l2sq_rows must sum exactly as the CUDA kernel does: lane t of a
+    warp accumulates elements 128*j + 4*t + c in (j, c) order, then a
+    shfl_xor butterfly.  Emulated here element by element in float32."""
+    rng = np.random.default_rng(5)
+    for d in (8, 100, 128, 261):
+        q = rng.normal(size=(2, d)).astype(np.float32)
+        x = rng.normal(size=(2, 3, d)).astype(np.float32)
+        got = ref.l2sq_rows(torch.as_tensor(q), torch.as_tensor(x)).numpy()
+        for b in range(2):
+            for m in range(3):
+                acc = np.zeros(32, np.float32)
+                for t in range(32):
+                    for base in range(0, d, 128):
+                        for c in range(4):
+                            e = base + 4 * t + c
+                            if e < d:
+                                df = np.float32(q[b, e] - x[b, m, e])
+                                acc[t] = np.float32(acc[t] + df * df)
+                for off in (16, 8, 4, 2, 1):
+                    acc = (acc + acc[np.arange(32) ^ off]).astype(np.float32)
+                assert got[b, m] == acc[0]
+                np.testing.assert_allclose(
+                    got[b, m], np.sum((q[b] - x[b, m]) ** 2), rtol=1e-5)
+
+
+def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    ops.reset_launch_counts()
+    nbrs, q, ed, dcq, b2, table, ev, el = _expand_inputs(3, 2, 8, 20, 8)
+    ops.fused_expand(*map(torch.as_tensor, (nbrs, q, ed, dcq, b2)), 0.1,
+                     torch.as_tensor(table))
+    pd, pi, nd, ni = _merge_inputs(0, 2, 8, 8)
+    ops.pool_merge(*map(torch.as_tensor, (pd, pi, nd, ni)))
+    assert ops.LAUNCHES == {"fused_expand": 0, "pool_merge": 0}
+
+
+def test_build_compiles_nothing_on_import_and_needs_nvcc(monkeypatch):
+    """Importing the kernel modules built nothing; without nvcc a build
+    raises instead of falling back to the plain version."""
+    import repro_torch.kernels.fused_expand  # noqa: F401
+    import repro_torch.kernels.pool_merge  # noqa: F401
+    assert build.BUILD_LOG == {}
+    monkeypatch.setenv("PATH", "/nonexistent")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(build.os.path, "isfile", lambda p: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.nvcc_path()
+    for name in build.KERNEL_SOURCES:
+        assert (build.CSRC / f"{name}.cu").is_file()
+        assert build._lib_path(name).name.startswith(name + "-")
+
+
+# --- on the card only ---------------------------------------------------------
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc; run chip_smoke.py on one")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L,d", [(128, 128), (256, 960), (128, 100)])
+def test_fused_expand_kernel_matches_plain_on_gpu(cuda, L, d):
+    from repro_torch.kernels.fused_expand import fused_expand_cuda
+    raw = _expand_inputs(L + d, 128, L, 5000, d, in_range=False)
+    t = [torch.as_tensor(a, device=cuda) for a in raw]
+    args = ops.prepare_fused_expand(*t[:5], 0.31, t[5], t[6], t[7])
+    kd, kp = fused_expand_cuda(*args)
+    pd, pp = ref.fused_expand_ref(*args)
+    assert torch.equal(kp, pp)
+    assert torch.equal(kd, pd)       # same summation order: bit-equal
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,L", [(64, 128), (100, 256)])
+def test_pool_merge_kernel_is_bit_exact_on_gpu(cuda, P, L):
+    from repro_torch.kernels.pool_merge import pool_merge_cuda
+    t = [torch.as_tensor(a, device=cuda)
+         for a in _merge_inputs(P * L, 128, P, L)]
+    kd, ki = pool_merge_cuda(*t)
+    pd, pi = ref.pool_merge_ref(*t)
+    assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
+    assert torch.equal(ki, pi)

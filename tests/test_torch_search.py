@@ -1,0 +1,141 @@
+"""Engine parity of the PyTorch port with the JAX package's ``jnp`` engine.
+
+One graph is built by the JAX package and carried to the port with
+``AnnIndex.from_payload``; the same numpy queries go through
+``repro``'s ``engine="jnp"`` and through both port engines on the CPU
+(``"torch"``, and ``"fused"``, whose kernel wrappers run their plain
+versions on CPU tensors — which exercises the in-kernel prune path and the
+``id*4+flags`` pool encoding).  Ids, every counter and ``iters`` must be
+equal; distances within rtol/atol 1e-5 (the port sums squared differences
+in the CUDA kernel's order, XLA in its own).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.angles import sample_angle_profile
+from repro.core.hnsw import build_hnsw
+from repro.core.index import AnnIndex as JIndex
+from repro.core.search import _search_batch as j_search_batch
+from repro.core.search import build_search_fn as j_build
+from repro.core.search import graph_device_arrays as j_arrays
+from repro.core.spec import SearchSpec as JSpec
+from repro.data.vectors import make_dataset
+
+from repro_torch.core.index import AnnIndex as TIndex
+from repro_torch.core.search import _search_batch as t_search_batch
+from repro_torch.core.search import build_search_fn as t_build
+from repro_torch.core.search import graph_device_arrays as t_arrays
+from repro_torch.core.spec import SearchSpec as TSpec
+
+ENGINES = ["torch", "fused"]
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """The tiny_graph of tests/test_engine_equivalence.py, as both indexes."""
+    ds = make_dataset(n_base=600, n_query=8, dim=24, n_clusters=12, seed=3)
+    g = build_hnsw(ds.base, m=8, efc=48, seed=0)
+    prof = sample_angle_profile(g, n_sample=6, efs=32, seed=1)
+    j = JIndex(graph=g, profile=prof)
+    t = TIndex.from_payload(j._payload(), device="cpu")
+    return ds, j, t, prof.cos_theta_star
+
+
+def _assert_same(a, b, n_valid=None):
+    sl = slice(None) if n_valid is None else slice(0, n_valid)
+    np.testing.assert_array_equal(np.asarray(a.ids)[sl], b.ids.numpy()[sl])
+    np.testing.assert_allclose(np.asarray(a.dists)[sl], b.dists.numpy()[sl],
+                               rtol=1e-5, atol=1e-5)
+    for c in ("dist_calls", "est_calls", "hops"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, c)),
+                                      getattr(b, c).numpy(), err_msg=c)
+    assert int(a.iters) == b.iters
+
+
+def _run_both(j, t, queries, ct, engine, **spec):
+    _, jf = j_build(j.graph, JSpec(engine="jnp", **spec))
+    a = jf(jnp.asarray(queries), jnp.asarray(ct, jnp.float32))
+    _, tf = t_build(t.graph, TSpec(engine=engine, **spec), device="cpu")
+    return a, tf(queries, ct)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("router", ["none", "crouting", "crouting_o",
+                                    "triangle"])
+def test_routers_at_w1_match_jnp(tiny, router, engine):
+    ds, j, t, ct = tiny
+    a, b = _run_both(j, t, ds.queries, ct, engine, efs=24, router=router)
+    _assert_same(a, b)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("beam_prune", ["best", "all"])
+def test_crouting_beam_matches_jnp(tiny, beam_prune, engine):
+    ds, j, t, ct = tiny
+    a, b = _run_both(j, t, ds.queries, ct, engine, efs=24, router="crouting",
+                     beam_width=4, beam_prune=beam_prune)
+    _assert_same(a, b)
+    assert int(np.asarray(a.est_calls).sum()) > 0
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_plain_beam_matches_jnp(tiny, engine):
+    ds, j, t, ct = tiny
+    a, b = _run_both(j, t, ds.queries, ct, engine, efs=24, router="none",
+                     beam_width=4)
+    _assert_same(a, b)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_valid_masked_padded_batch_matches_jnp(tiny, engine):
+    """A ragged batch padded to 8 lanes: padded lanes count 0 everywhere."""
+    ds, j, t, ct = tiny
+    q = ds.queries.copy()
+    q[5:] = 0.0
+    valid = np.arange(8) < 5
+    jcfg = JSpec(efs=24, router="crouting", beam_width=4, engine="jnp")
+    arrays = j_arrays(j.graph)
+    a = jax.jit(lambda qq, cc, vv: j_search_batch(arrays, qq, cc, jcfg,
+                                                  valid=vv))(
+        jnp.asarray(q), jnp.asarray(ct, jnp.float32), jnp.asarray(valid))
+    b = t_search_batch(t_arrays(t.graph, "cpu"), torch.as_tensor(q), ct,
+                       TSpec(efs=24, router="crouting", beam_width=4,
+                             engine=engine), valid=torch.as_tensor(valid))
+    _assert_same(a, b, n_valid=5)
+    for c in (b.dist_calls, b.est_calls, b.hops):
+        assert (c.numpy()[5:] == 0).all()
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_tombstoned_search_matches_jnp(tiny, engine):
+    ds, j, t, ct = tiny
+    n = j.graph.n
+    rng = np.random.default_rng(0)
+    dead = np.zeros(n + 1, bool)
+    dead[rng.choice(n, size=n // 8, replace=False)] = True
+    spec = dict(efs=24, router="crouting", beam_width=2)
+    _, jf = j_build(j.graph, JSpec(engine="jnp", **spec), tombstones=True)
+    a = jf(jnp.asarray(ds.queries), jnp.asarray(ct, jnp.float32),
+           jnp.asarray(dead))
+    _, tf = t_build(t.graph, TSpec(engine=engine, **spec), tombstones=True,
+                    device="cpu")
+    b = tf(ds.queries, ct, dead)
+    _assert_same(a, b)
+    ids = b.ids.numpy()
+    assert not dead[ids[ids < n]].any()
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_flat_knn_graph_matches_jnp(engine):
+    """No hierarchy: the entry point is the medoid for every query."""
+    ds = make_dataset(n_base=500, n_query=8, dim=16, n_clusters=1, seed=4)
+    j = JIndex.build(ds.base, graph="knn", k=12)
+    t = TIndex.from_payload(j._payload(), device="cpu")
+    ct = j.profile.cos_theta_star
+    assert t.graph.upper_neighbors is None
+    a, b = _run_both(j, t, ds.queries, ct, engine, efs=32, router="crouting",
+                     beam_width=4, use_hierarchy=False)
+    _assert_same(a, b)
