@@ -5,33 +5,43 @@
 
 Phases, each printing one JSON line:
 
-1. ``build``   — compile the CUDA kernels (src/repro_torch/csrc/*.cu) with
-   nvcc, one process per source, into build/repro_torch/.
+1. ``build``   — compile the five CUDA kernels (src/repro_torch/csrc/*.cu)
+   with nvcc, one process per source started at once, into
+   build/repro_torch/.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
-   card: ``fused_expand`` (B=128, L in {128, 256}, d in {128, 960, 100},
+   card (B=128): ``fused_expand`` (L in {128, 256}, d in {128, 960, 100},
    with all-pruned and all-masked rows, out-of-range ids, the pad row and
    bound2=+inf) must give a bit-equal prune mask, the same +inf pattern and
    distances within rtol 1e-5; ``pool_merge`` (P in {64, 100}, L in
    {128, 256}, exact ties, +inf/pad sentinels, id*4+flags payloads) must be
-   bit-exact.
+   bit-exact; ``sq8_distance`` (L in {128, 256}, d in {128, 960, 100}, with
+   all-masked rows, out-of-range and negative ids, the pad row and constant
+   dimensions), ``gather_distance`` (M in {4, 100, 128}, d in {128, 960,
+   100}, with and without a skip mask) and ``crouting_prune`` (L in {128,
+   256}, inf edge lengths, bound2 = +inf and 0) must be bit-equal.
 3. ``hnsw``    — the main path with its hierarchy: make_dataset(50k x 128,
    64 clusters) -> AnnIndex.build(graph="hnsw", m=16, efc=64) -> search
-   1024 queries in batches of 128 with SearchSpec(k=10, efs=100,
-   router="crouting", beam_width=4) and beam_width=1, each on the "fused"
-   (kernel) and the "torch" (plain) engine.
+   1024 queries in batches of 128 with every spec of ``SPECS`` on its
+   engines: the "torch" (plain) engine, the "fused" kernel engine and, for
+   the specs in ``UNFUSED_SPECS``, the "unfused" kernel engine.
 4. ``knn_1m``  — the kernels at a deployment's state size: 1M x 128 (one
    Gaussian cloud) -> AnnIndex.build(graph="knn", k=32) on the card, the
    same searches.
 5. ``timing``  — each kernel, its plain version and its bound on inputs
-   captured from the knn_1m main path (W=4, where the router hook decides
-   the prunes, and W=1, where the kernel does).
+   captured from the knn_1m main path: fused_expand and pool_merge at W=4
+   (the router hook decides the prunes) and W=1 (the kernel does),
+   sq8_distance on the stage-1 tile and gather_distance on the in-loop
+   [B, W] and final [B, efs] reranks of ``W4_both``, crouting_prune and
+   gather_distance on the unfused W=4 tile.
 
-For phases 3 and 4 the fused engine must launch both kernels, and the two
-engines must agree: identical ids and per-query counters on >= 99% of
-queries, mean dist_calls within 0.5%, recall@10 within 0.005.  Any failed
-check raises and the script exits non-zero.  The last three lines are the
-kernel table (JSON), the card's name and power limit (nvidia-smi), and
-``{"ok": true, "device": {...}}``.
+For phases 3 and 4 each kernel engine must launch exactly the kernels its
+(engine, spec) runs (``expected_kernels``; every one at least once, no
+other), and must agree with the torch engine: identical ids and per-query
+counters (dist_calls, est_calls, hops, rerank_calls, sq8_calls) on >= 99%
+of queries, mean dist_calls within 0.5%, recall@10 within 0.005.  Any
+failed check raises and the script exits non-zero.  The last three lines
+are the kernel table (JSON), the card's name and power limit (nvidia-smi),
+and ``{"ok": true, "device": {...}}``.
 
 fp32 throughout, with TF32 off for matmuls and cuDNN: the K-NN build and
 the ground truth are fp32 matrix products.
@@ -51,7 +61,15 @@ FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 SPECS = {"W4": dict(k=10, efs=100, router="crouting", beam_width=4),
          "W1": dict(k=10, efs=100, router="crouting", beam_width=1),
          # no pruning: what the graph itself reaches at this efs
-         "W4_none": dict(k=10, efs=100, router="none", beam_width=4)}
+         "W4_none": dict(k=10, efs=100, router="none", beam_width=4),
+         # the serving spec with the two-stage SQ8 path behind crouting
+         "W4_both": dict(k=10, efs=100, router="crouting", estimate="both",
+                         beam_width=4),
+         # the two-stage path alone
+         "W1_sq8": dict(k=10, efs=100, router="none", estimate="sq8",
+                        beam_width=1)}
+UNFUSED_SPECS = ("W4", "W4_both", "W1_sq8")
+COUNTERS = ("dist_calls", "est_calls", "hops", "rerank_calls", "sq8_calls")
 BATCH = 128
 
 
@@ -210,6 +228,133 @@ def check_pool_merge(rng, dev):
     return rows
 
 
+def bit_equal(a, b):
+    """Same bits (NaN and the sign of zero included) and same shape."""
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def sq8_case(rng, B, L, d, n_rows, dev):
+    """Stage-1 inputs with every edge case the engine can hand the kernel:
+    the pad row, out-of-range and negative ids, an all-masked row and
+    constant dimensions (scale 1e-12)."""
+    import numpy as np
+    import torch
+    from repro_torch.quant import sq8 as SQ
+    x = rng.normal(size=(n_rows - 1, d)).astype(np.float32)
+    x[:, ::7] = 0.75                                  # constant dimensions
+    qp = SQ.sq8_train(x)
+    codes = SQ.sq8_encode(np.concatenate([x, np.zeros((1, d), np.float32)]),
+                          qp)
+    nbrs = rng.integers(0, n_rows - 1, size=(B, L)).astype(np.int32)
+    nbrs[:, ::17] = n_rows - 1                        # pad-row lanes
+    nbrs[2, ::3] = n_rows + 5                         # out of range
+    nbrs[2, 1::5] = -1
+    ev = (rng.random((B, L)) < 0.7).astype(np.int8)
+    ev[1] = 0                                         # all masked
+    ev[3] = 1                                         # all evaluated
+    q = rng.normal(size=(B, d)).astype(np.float32)
+    t = lambda a: torch.as_tensor(a, device=dev)       # noqa: E731
+    return t(nbrs), t(q), t(ev), t(codes), t(qp.lo), t(qp.scale), t(qp.eps)
+
+
+def check_sq8_distance(rng, dev):
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sq8_distance import sq8_distance_cuda
+    rows = []
+    for L in (128, 256):
+        for d in (128, 960, 100):
+            args = ops.prepare_sq8_estimate(*sq8_case(rng, 128, L, d, 20_001,
+                                                      dev))
+            ka, kl = sq8_distance_cuda(*args)
+            pa, pl = ref.sq8_estimate_ref(*args)
+            torch.cuda.synchronize()
+            check(bit_equal(ka, pa) and bit_equal(kl, pl),
+                  f"sq8_distance L={L} d={d}: not bit-equal with the plain "
+                  "version")
+            check(bool(torch.isinf(ka[1]).all()) and
+                  bool(torch.isfinite(ka[3]).all()) and
+                  bool(torch.isinf(ka[2][args[0][2] < 0]).all()),
+                  "sq8_distance: masked / evaluated / out-of-range rows wrong")
+            rows.append({"L": L, "d": d, "bit_equal": True,
+                         "max_abs_err": 0.0,
+                         "evaluated": int(args[2].sum()),
+                         "ms": cuda_times(lambda: sq8_distance_cuda(*args), 50)})
+    return rows
+
+
+def check_gather_distance(rng, dev):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gather_distance import gather_distance_cuda
+    rows = []
+    n_rows = 20_001
+    for M in (4, 100, 128):
+        for d in (128, 960, 100):
+            table = rng.normal(size=(n_rows, d)).astype(np.float32)
+            table[-1] = 0.0
+            idx = rng.integers(0, n_rows, size=(128, M)).astype(np.int32)
+            idx[2, ::3] = n_rows + 5                  # out of range
+            idx[2, 1::3] = -1
+            skip = (rng.random((128, M)) < 0.4).astype(np.int8)
+            skip[1] = 1                               # all skipped
+            q = rng.normal(size=(128, d)).astype(np.float32)
+            t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
+            for masked in (False, True):
+                args = ops.prepare_gather_distance(
+                    t(idx), t(q), t(table), skip=t(skip) if masked else None)
+                kd = gather_distance_cuda(*args)
+                pd = ref.gather_distance_ref(args[0], args[2], args[3],
+                                             args[1])
+                torch.cuda.synchronize()
+                check(bit_equal(kd, pd), f"gather_distance M={M} d={d} "
+                      f"skip={masked}: not bit-equal with the plain version")
+                check(bool(torch.isinf(kd[2][::3]).all()) and
+                      bool(torch.isinf(kd[1]).all()) == masked,
+                      "gather_distance: skipped / out-of-range lanes wrong")
+                rows.append({"M": M, "d": d, "skip_mask": masked,
+                             "bit_equal": True, "max_abs_err": 0.0,
+                             "ms": cuda_times(
+                                 lambda: gather_distance_cuda(*args), 50)})
+    return rows
+
+
+def check_crouting_prune(rng, dev):
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.crouting_prune import crouting_prune_cuda
+    rows = []
+    for L in (128, 256):
+        B = 128
+        ed = rng.uniform(0, 30, size=(B, L)).astype(np.float32)
+        ed[:, ::13] = np.inf                          # adjacency pad slots
+        dcq = rng.uniform(5, 30, size=(B, L)).astype(np.float32)
+        b2 = rng.uniform(10, 900, size=(B, L)).astype(np.float32)
+        b2[0] = np.inf                                # never prunes
+        b2[1] = 0.0                                   # prunes every valid lane
+        valid = (rng.random((B, L)) < 0.8).astype(np.int8)
+        args = [torch.as_tensor(a, device=dev) for a in (ed, dcq, b2, valid)]
+        ke, kp = crouting_prune_cuda(*args, 0.31)
+        pe, pp = ref.crouting_prune_ref(*args, 0.31)
+        torch.cuda.synchronize()
+        check(bit_equal(kp, pp) and bit_equal(ke, pe),
+              f"crouting_prune L={L}: not bit-equal with the plain version")
+        nan = torch.isnan(ke)
+        check(not bool(kp[0].any()) and
+              bool((kp[1] != 0).eq((args[3][1] != 0) & ~nan[1]).all()),
+              "crouting_prune: bound2 = +inf / 0 rows wrong")
+        rows.append({"L": L, "bit_equal": True, "max_abs_err": 0.0,
+                     "pruned": int(kp.sum()), "nan_estimates": int(nan.sum()),
+                     "ms": cuda_times(lambda: crouting_prune_cuda(*args, 0.31),
+                                      50)})
+    return rows
+
+
 # --- phases 3 and 4: the main path on both engines ---------------------------
 def run_engine(idx, queries, spec):
     import numpy as np
@@ -233,126 +378,190 @@ def run_engine(idx, queries, spec):
             "max_memory_allocated": int(torch.cuda.max_memory_allocated())}
 
 
-def compare_engines(phase, name, fused, plain, gt, nq, main_launches):
+def expected_kernels(engine, kw):
+    """The kernels an (engine, spec) run must launch, and no other: the
+    fused engine runs fused_expand on the exact path; the sq8 path runs
+    sq8_distance and gather_distance (the reranks) instead; the unfused
+    engine adds gather_distance on the exact path and crouting_prune where
+    the router prunes; every kernel engine merges with pool_merge.  The
+    torch engine launches none."""
+    if engine == "torch":
+        return set()
+    sq8 = kw.get("estimate", "exact") in ("sq8", "both")
+    want = {"pool_merge"}
+    if sq8:
+        want |= {"sq8_distance", "gather_distance"}
+    elif engine == "fused":
+        want.add("fused_expand")
+    if engine == "unfused":
+        want.add("gather_distance")
+        if kw["router"] != "none":
+            want.add("crouting_prune")
+    return want
+
+
+def compare_engines(phase, name, kw, runs, gt, nq, main_launches):
+    """Check each kernel engine's run against the torch engine's and its
+    launches against ``expected_kernels``; emit one line per spec."""
     import numpy as np
     from repro_torch.data.vectors import recall_at_k
     out = {"phase": phase, "spec": name}
-    same = np.all(fused["ids"] == plain["ids"], axis=1)
-    for c in ("dist_calls", "est_calls", "hops"):
-        same &= getattr(fused["stats"], c) == getattr(plain["stats"], c)
-    agree = float(same.mean())
-    rec = {}
-    for eng, r in (("fused", fused), ("torch", plain)):
+    plain = runs["torch"]
+    for eng, r in runs.items():
         st = r["stats"]
-        rec[eng] = recall_at_k(r["ids"], gt, 10)
-        out[eng] = {"qps": nq / r["secs"], "secs": r["secs"],
-                    "recall@10": rec[eng],
-                    "dist_calls": float(np.mean(st.dist_calls)),
-                    "est_calls": float(np.mean(st.est_calls)),
-                    "hops": float(np.mean(st.hops)),
-                    "iters_per_batch": float(np.mean(r["iters"])),
-                    "launches": r["launches"],
-                    "max_memory_allocated": r["max_memory_allocated"]}
-    out["agree_share"] = agree
-    dc_f, dc_p = out["fused"]["dist_calls"], out["torch"]["dist_calls"]
-    out["dist_calls_rel_diff"] = abs(dc_f - dc_p) / max(dc_p, 1e-9)
+        row = {"qps": nq / r["secs"], "secs": r["secs"],
+               "recall@10": recall_at_k(r["ids"], gt, 10),
+               "iters_per_batch": float(np.mean(r["iters"])),
+               "launches": r["launches"],
+               "max_memory_allocated": r["max_memory_allocated"]}
+        row.update({c: float(np.mean(getattr(st, c))) for c in COUNTERS})
+        if eng != "torch":
+            same = np.all(r["ids"] == plain["ids"], axis=1)
+            for c in COUNTERS:
+                same &= getattr(st, c) == getattr(plain["stats"], c)
+            row["agree_share"] = float(same.mean())
+        out[eng] = row
     emit(out)
-    for k, v in fused["launches"].items():
-        check(v > 0, f"{phase}/{name}: kernel {k} never launched on the "
-              "fused engine")
-        main_launches[k] = main_launches.get(k, 0) + v
-    check(all(v == 0 for v in plain["launches"].values()),
-          f"{phase}/{name}: the torch engine launched a kernel")
-    check(agree >= 0.99, f"{phase}/{name}: engines agree on {agree:.4f} of "
-          "queries (< 0.99)")
-    check(out["dist_calls_rel_diff"] <= 0.005,
-          f"{phase}/{name}: mean dist_calls differ by "
-          f"{out['dist_calls_rel_diff']:.4%}")
-    check(abs(rec["fused"] - rec["torch"]) <= 0.005,
-          f"{phase}/{name}: recall differs {rec}")
+    ref = out["torch"]
+    for eng, r in runs.items():
+        got = {k for k, v in r["launches"].items() if v > 0}
+        want = expected_kernels(eng, kw)
+        check(got == want, f"{phase}/{name}: the {eng} engine launched "
+              f"{sorted(got)}, expected {sorted(want)}")
+        if eng == "torch":
+            continue
+        for k, v in r["launches"].items():
+            main_launches[k] = main_launches.get(k, 0) + v
+        row = out[eng]
+        check(row["agree_share"] >= 0.99, f"{phase}/{name}: {eng} and torch "
+              f"agree on {row['agree_share']:.4f} of queries (< 0.99)")
+        rel = abs(row["dist_calls"] - ref["dist_calls"]) / max(
+            ref["dist_calls"], 1e-9)
+        check(rel <= 0.005, f"{phase}/{name}: {eng} mean dist_calls differ "
+              f"by {rel:.4%}")
+        check(abs(row["recall@10"] - ref["recall@10"]) <= 0.005,
+              f"{phase}/{name}: {eng} recall {row['recall@10']} vs torch "
+              f"{ref['recall@10']}")
 
 
 def search_phase(phase, idx, ds, gt, main_launches, captures=None):
+    """Every spec of ``SPECS`` on its engines; ``captures`` maps (spec,
+    engine) to a CaptureInputs run around that search."""
+    import contextlib
     import dataclasses
     from repro_torch.core.search import build_search_fn
     from repro_torch.core.spec import SearchSpec
     for name, kw in SPECS.items():
+        engines = ["fused"] + (["unfused"] if name in UNFUSED_SPECS else [])
         runs = {}
-        for engine in ("fused", "torch"):
+        for engine in engines + ["torch"]:
             spec = SearchSpec(engine=engine, **kw)
-            # copy the graph to the card before the clock starts
+            # copy the graph (and its SQ8 tables) to the card before the
+            # clock starts
             build_search_fn(idx.graph, dataclasses.replace(
                 spec, use_hierarchy=idx.graph.upper_neighbors is not None),
                 device=idx.device)
-            capture = (captures or {}).get(name)
-            if capture is not None and engine == "fused":
-                with capture:
-                    runs[engine] = run_engine(idx, ds.queries, spec)
-            else:
+            capture = (captures or {}).get((name, engine))
+            with capture if capture is not None else contextlib.nullcontext():
                 runs[engine] = run_engine(idx, ds.queries, spec)
-        compare_engines(phase, name, runs["fused"], runs["torch"], gt,
-                        len(ds.queries), main_launches)
+        compare_engines(phase, name, kw, runs, gt, len(ds.queries),
+                        main_launches)
+
+
+WRAPPERS = ("fused_expand", "pool_merge", "sq8_estimate",
+            "gather_distance_pruned", "crouting_prune")
 
 
 class CaptureInputs:
-    """Record the arguments of the N-th call of each kernel wrapper during
-    a main-path run (the last call if there are fewer), for timing the
-    kernels on real inputs."""
+    """Record the arguments of the N-th call of each kernel wrapper, per
+    lane width of its first argument, during a main-path run (the last call
+    if there are fewer), for timing the kernels on real inputs.  Tensors of
+    more than 2**24 elements (the vector and code tables) are kept by
+    reference: the search never writes them."""
 
     def __init__(self, nth: int = 30):
         self.nth = nth
         self.args = {}
 
+    def get(self, name, width=None):
+        keys = [k for k in self.args if k[0] == name
+                and (width is None or k[1] == width)]
+        check(len(keys) == 1, f"capture: {name} width={width} has {keys}")
+        return self.args[keys[0]]
+
     def __enter__(self):
         from repro_torch.kernels import ops
-        self._orig = {"fused_expand": ops.fused_expand,
-                      "pool_merge": ops.pool_merge}
-        calls = {"fused_expand": 0, "pool_merge": 0}
+        self._orig = {w: getattr(ops, w) for w in WRAPPERS}
+        calls = {}
+
+        def keep(x):
+            small = hasattr(x, "clone") and x.numel() <= 2 ** 24
+            return x.clone() if small else x
 
         def wrap(name):
             orig = self._orig[name]
 
             def f(*a, **kw):
-                calls[name] += 1
-                if calls[name] <= self.nth:
-                    self.args[name] = (
-                        [x.clone() if hasattr(x, "clone") else x for x in a],
-                        {k: v.clone() if hasattr(v, "clone") else v
-                         for k, v in kw.items()})
+                key = (name, int(a[0].shape[1]))
+                calls[key] = calls.get(key, 0) + 1
+                if calls[key] <= self.nth:
+                    self.args[key] = ([keep(x) for x in a],
+                                      {k: keep(v) for k, v in kw.items()})
                 return orig(*a, **kw)
             return f
-        ops.fused_expand = wrap("fused_expand")
-        ops.pool_merge = wrap("pool_merge")
+        for w in WRAPPERS:
+            setattr(ops, w, wrap(w))
         return self
 
     def __exit__(self, *exc):
         from repro_torch.kernels import ops
-        ops.fused_expand = self._orig["fused_expand"]
-        ops.pool_merge = self._orig["pool_merge"]
+        for w, f in self._orig.items():
+            setattr(ops, w, f)
         return False
 
 
-def timing_phase(captures, main_launches):
-    """Kernel vs plain version vs bound on inputs captured from knn_1m, per
-    captured spec; returns the rows of the first (the serving spec)."""
-    rows = {name: time_kernels(c, main_launches)
-            for name, c in captures.items()}
-    emit({"phase": "timing", "kernels": rows})
-    return next(iter(rows.values()))
+KERNEL_FILES = {
+    "fused_expand": "src/repro/kernels/fused_expand.py:106",
+    "pool_merge": "src/repro/kernels/pool_merge.py:95",
+    "sq8_distance": "src/repro/kernels/sq8_distance.py:87",
+    "gather_distance": "src/repro/kernels/gather_distance.py:53",
+    "crouting_prune": "src/repro/kernels/crouting_prune.py:54"}
+NO_LIBRARY_CALL = {
+    "fused_expand": "no single PyTorch call: a row gather under a computed "
+                    "prune mask, then a distance",
+    "pool_merge": "no single PyTorch call: a lexicographic (dist, id) "
+                  "merge needs a concat and two sorts",
+    "sq8_distance": "no single PyTorch call: a uint8 row gather, a "
+                    "dequantization and two sums",
+    "gather_distance": "no single PyTorch call: a row gather under a skip "
+                       "mask, then a distance",
+    "crouting_prune": "no single PyTorch call: an elementwise estimate and "
+                      "a comparison are several ops"}
 
 
-def time_kernels(capture, main_launches):
+def timed_row(name, kernel, plain, nbytes, flops, err, shape, flush=None):
+    """One kernel-table row: the kernel's and the plain version's median
+    time and the bound (the larger of bytes over HBM rate and flops over
+    the fp32 rate), on the same inputs."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / FP32_FLOPS * 1e3
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": KERNEL_FILES[name], "max_abs_err": err,
+            "ms": cuda_times(kernel, 200, flush),
+            "plain_ms": cuda_times(plain, 50, flush),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None, "library_note": NO_LIBRARY_CALL[name],
+            "shape": shape}
+
+
+def time_fused_expand(capture, flush):
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fused_expand import fused_expand_cuda
-    from repro_torch.kernels.pool_merge import pool_merge_cuda
-    kernels = []
-    a, kw = capture.args["fused_expand"]
+    a, kw = capture.get("fused_expand")
     args = ops.prepare_fused_expand(*a, **kw)
-    # 64 MB written between timed launches evicts the 50 MB L2: the hop
-    # loop's row reads are first touches
-    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
-                        device=args[0].device)
     nbrs, q = args[0], args[1]
     B, L = nbrs.shape
     d = q.shape[1]
@@ -368,43 +577,128 @@ def time_kernels(capture, main_launches):
     # int8 masks) + queries in; dist2 (4 B) + prune (1 B) out
     nbytes = computed * d * 4 + B * L * (4 * 4 + 2) + B * d * 4 + B * L * 5
     flops = computed * 3 * d + B * L * 8
-    bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
-    kernels.append({
-        "name": "fused_expand", "route": "cuda",
-        "source": "src/repro_torch/csrc/fused_expand.cu",
-        "replaces": "src/repro/kernels/fused_expand.py:106",
-        "launches": main_launches["fused_expand"], "max_abs_err": err,
-        "ms": cuda_times(lambda: fused_expand_cuda(*args), 200, flush.zero_),
-        "plain_ms": cuda_times(lambda: ref.fused_expand_ref(*args), 50,
-                               flush.zero_),
-        "bound_ms": bound,
-        "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-        >= flops / FP32_FLOPS else "operations",
-        "library_ms": None,
-        "shape": {"B": B, "L": L, "d": d, "table_rows": args[6].shape[0],
-                  "computed_lanes": computed, "pruned_lanes": int(kp.sum())}})
+    return timed_row("fused_expand", lambda: fused_expand_cuda(*args),
+                     lambda: ref.fused_expand_ref(*args), nbytes, flops, err,
+                     {"B": B, "L": L, "d": d, "table_rows": args[6].shape[0],
+                      "computed_lanes": computed,
+                      "pruned_lanes": int(kp.sum())}, flush)
 
-    a, _ = capture.args["pool_merge"]
+
+def time_pool_merge(capture):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.pool_merge import pool_merge_cuda
+    a, _ = capture.get("pool_merge")
     margs = (a[0].float().contiguous(), a[1].int().contiguous(),
              a[2].float().contiguous(), a[3].int().contiguous())
     B, P = margs[0].shape
     L = margs[2].shape[1]
     kd, ki = pool_merge_cuda(*margs)
     pd, pi = ref.pool_merge_ref(*margs)
-    check(torch.equal(kd.view(torch.int32), pd.view(torch.int32))
-          and torch.equal(ki, pi), "timing: pool_merge not bit-exact on "
-          "captured inputs")
-    nbytes = B * (P + L) * 8 + B * P * 8
-    kernels.append({
-        "name": "pool_merge", "route": "cuda",
-        "source": "src/repro_torch/csrc/pool_merge.cu",
-        "replaces": "src/repro/kernels/pool_merge.py:95",
-        "launches": main_launches["pool_merge"], "max_abs_err": 0.0,
-        "ms": cuda_times(lambda: pool_merge_cuda(*margs), 200),
-        "plain_ms": cuda_times(lambda: ref.pool_merge_ref(*margs), 50),
-        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": None, "shape": {"B": B, "P": P, "L": L}})
-    return kernels
+    check(bit_equal(kd, pd) and bit_equal(ki, pi),
+          "timing: pool_merge not bit-exact on captured inputs")
+    return timed_row("pool_merge", lambda: pool_merge_cuda(*margs),
+                     lambda: ref.pool_merge_ref(*margs),
+                     B * (P + L) * 8 + B * P * 8, 0, 0.0,
+                     {"B": B, "P": P, "L": L})
+
+
+def time_sq8_distance(capture, flush):
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.sq8_distance import sq8_distance_cuda
+    a, kw = capture.get("sq8_estimate")
+    args = ops.prepare_sq8_estimate(*a, **kw)
+    B, L = args[0].shape
+    d = args[1].shape[1]
+    ka, kl = sq8_distance_cuda(*args)
+    pa, pl = ref.sq8_estimate_ref(*args)
+    check(bit_equal(ka, pa) and bit_equal(kl, pl),
+          "timing: sq8_distance not bit-equal on captured inputs")
+    evaluated = int(args[2].sum())
+    # bytes: evaluated code rows + nbrs (4 B) and eval (1 B) a lane + the
+    # queries and the three [d] grid arrays in; ad2, lb2 (4 B each) out
+    nbytes = evaluated * d + B * L * 5 + B * d * 4 + 3 * d * 4 + B * L * 8
+    flops = evaluated * d * 8 + B * L * 3
+    return timed_row("sq8_distance", lambda: sq8_distance_cuda(*args),
+                     lambda: ref.sq8_estimate_ref(*args), nbytes, flops, 0.0,
+                     {"B": B, "L": L, "d": d, "code_rows": args[3].shape[0],
+                      "evaluated_lanes": evaluated}, flush)
+
+
+def time_gather_distance(capture, width, flush, what):
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.gather_distance import gather_distance_cuda
+    a, _ = capture.get("gather_distance_pruned", width)
+    args = ops.prepare_gather_distance(a[0], a[2], a[3], skip=a[1])
+    idx, skip, q, table = args
+    B, M = idx.shape
+    d = q.shape[1]
+    kd = gather_distance_cuda(*args)
+    pd = ref.gather_distance_ref(idx, q, table, skip)
+    check(bit_equal(kd, pd), f"timing: gather_distance ({what}) not "
+          "bit-equal on captured inputs")
+    computed = int((skip == 0).sum())
+    # bytes: computed rows + idx (4 B) and skip (1 B) a lane + the queries
+    # in; dist2 (4 B) out
+    nbytes = computed * d * 4 + B * M * 9 + B * d * 4
+    return timed_row("gather_distance", lambda: gather_distance_cuda(*args),
+                     lambda: ref.gather_distance_ref(idx, q, table, skip),
+                     nbytes, computed * 3 * d, 0.0,
+                     {"call": what, "B": B, "M": M, "d": d,
+                      "computed_lanes": computed}, flush)
+
+
+def time_crouting_prune(capture):
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.crouting_prune import crouting_prune_cuda
+    a, kw = capture.get("crouting_prune")
+    args = ops.prepare_crouting_prune(*a, **kw)
+    B, L = args[0].shape
+    ke, kp = crouting_prune_cuda(*args)
+    pe, pp = ref.crouting_prune_ref(*args)
+    check(bit_equal(ke, pe) and bit_equal(kp, pp),
+          "timing: crouting_prune not bit-equal on captured inputs")
+    # ed, dcq, bound2 (4 B) and valid (1 B) in; est2 (4 B), prune (1 B) out
+    return timed_row("crouting_prune", lambda: crouting_prune_cuda(*args),
+                     lambda: ref.crouting_prune_ref(*args), B * L * 18,
+                     B * L * 7, 0.0,
+                     {"B": B, "L": L, "pruned_lanes": int(kp.sum())})
+
+
+def timing_phase(captures, main_launches):
+    """Each kernel against its plain version and its bound on inputs
+    captured from the knn_1m main path.  Returns the kernel table: one row
+    per kernel (its first timing), with the other timings under
+    ``other_shapes`` and the main path's launch count."""
+    import torch
+    w4, w1 = captures[("W4", "fused")], captures[("W1", "fused")]
+    both, unf = captures[("W4_both", "fused")], captures[("W4", "unfused")]
+    W, efs = SPECS["W4_both"]["beam_width"], SPECS["W4_both"]["efs"]
+    L = unf.get("crouting_prune")[0][0].shape[1]
+    # 64 MB written between timed launches evicts the 50 MB L2: the hop
+    # loop's row reads are first touches
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
+                        device="cuda").zero_
+    rows = {
+        "fused_expand": [time_fused_expand(w4, flush),
+                         time_fused_expand(w1, flush)],
+        "pool_merge": [time_pool_merge(w4), time_pool_merge(w1),
+                       time_pool_merge(both)],
+        "sq8_distance": [time_sq8_distance(both, flush)],
+        "gather_distance": [
+            time_gather_distance(both, W, flush, "in-loop rerank [B, W]"),
+            time_gather_distance(both, efs, flush, "final rerank [B, efs]"),
+            time_gather_distance(unf, L, flush, "unfused exact [B, W*M]")],
+        "crouting_prune": [time_crouting_prune(unf)]}
+    emit({"phase": "timing", "kernels": rows})
+    table = []
+    for name, rs in rows.items():
+        row = dict(rs[0], launches=main_launches[name])
+        row["other_shapes"] = [
+            {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
+            for r in rs[1:]]
+        table.append(row)
+    return table
 
 
 def profile_batch(idx, queries, spec):
@@ -432,7 +726,7 @@ def profile_batch(idx, queries, spec):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     ours = {name: {"device_ms": dt / 1e3, "count": c}
-            for dt, k, c in rows for name in ("fused_expand", "pool_merge")
+            for dt, k, c in rows for name in KERNEL_FILES
             if f"{name}_kernel" in k}
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
             "device_idle_share": (1 - busy / wall_us) if busy else None,
@@ -474,7 +768,10 @@ def main() -> int:
     # 2. kernels against their plain versions
     rng = np.random.default_rng(0)
     emit({"phase": "kernels", "fused_expand": check_fused_expand(rng, dev),
-          "pool_merge": check_pool_merge(rng, dev)})
+          "pool_merge": check_pool_merge(rng, dev),
+          "sq8_distance": check_sq8_distance(rng, dev),
+          "gather_distance": check_gather_distance(rng, dev),
+          "crouting_prune": check_crouting_prune(rng, dev)})
 
     main_launches = {}
     # 3. hnsw: the main path with its hierarchy, at a reduced n
@@ -513,11 +810,17 @@ def main() -> int:
           "theta_star": prof.theta_star,
           "cuts": "graph K-NN instead of HNSW (host HNSW builder); angle "
                   "profile from 64 sampled searches instead of 1000"})
-    captures = {"W4": CaptureInputs(), "W1": CaptureInputs()}
+    captures = {key: CaptureInputs() for key in (
+        ("W4", "fused"), ("W1", "fused"), ("W4_both", "fused"),
+        ("W4", "unfused"))}
     search_phase("knn_1m", idx, ds, gt, main_launches, captures=captures)
-    knn_prof = profile_batch(idx, ds.queries, SearchSpec(**SPECS["W4"]))
     emit({"phase": "profile", "hnsw_W4_fused": hnsw_prof,
-          "knn_1m_W4_fused": knn_prof})
+          "knn_1m_W4_fused": profile_batch(idx, ds.queries,
+                                           SearchSpec(**SPECS["W4"])),
+          "knn_1m_W4_both_fused": profile_batch(
+              idx, ds.queries, SearchSpec(**SPECS["W4_both"])),
+          "knn_1m_W4_unfused": profile_batch(
+              idx, ds.queries, SearchSpec(engine="unfused", **SPECS["W4"]))})
 
     # 5. kernels on captured main-path inputs
     kernels = timing_phase(captures, main_launches)

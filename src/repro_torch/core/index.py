@@ -72,7 +72,9 @@ class AnnIndex:
                      device: DeviceLike = None) -> "AnnIndex":
         """Rebuild an index from the JAX package's ``AnnIndex._payload()``
         dict (vectors, neighbors, edge_eu_dist, entry_point, metric, kind,
-        norms, the HNSW upper layers and the ``theta_*`` profile)."""
+        norms, the HNSW upper layers and the ``theta_*`` profile).  The SQ8
+        tables of ``estimate="sq8"|"both"`` are fit to the graph's rows at
+        first use, so they need no carrying."""
         dev = resolve_device(device)
         z = arrays
         upper_ids = upper_nbrs = None
@@ -101,7 +103,9 @@ class AnnIndex:
     # --- search ---------------------------------------------------------------
     def search(self, queries: np.ndarray, spec: Optional[SearchSpec] = None
                ) -> Tuple[np.ndarray, np.ndarray, SearchStats]:
-        """Batched search.  Returns (ids [B,k], dists [B,k], SearchStats).
+        """Batched search.  Returns (ids [B,k], dists [B,k], SearchStats);
+        the stats carry dist_calls, est_calls, rerank_calls, sq8_calls and
+        hops per query and the batch's iters.
 
         ``spec``'s ``metric`` and ``use_hierarchy`` are overridden from the
         graph, and ``cos_theta=None`` resolves to the sampled angle profile.

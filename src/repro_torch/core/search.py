@@ -16,8 +16,23 @@ restructured as ONE loop over a whole query batch (DESIGN.md §3).
     - ``"torch"`` — plain PyTorch ops (the counterpart of ``"jnp"``);
     - ``"fused"`` — the ``fused_expand`` kernel (estimate + prune +
       conditional row load + exact distance) and the ``pool_merge`` kernel
-      (the counterpart of ``"pallas"``).  On CPU tensors the kernel wrappers
-      run their plain versions.
+      (the counterpart of ``"pallas"``);
+    - ``"unfused"`` — the ``crouting_prune`` kernel, then
+      ``gather_distance`` under the prune mask, then ``pool_merge`` (the
+      counterpart of ``"pallas_unfused"``).
+  On CPU tensors the kernel wrappers run their plain versions.
+
+Two-stage quantized distances (``SearchSpec.estimate="sq8"|"both"``): the
+surviving lanes of a tile do not read their fp32 rows.  Stage 1 reads the
+uint8 SQ8 code row (``sq8_distance``, d bytes instead of 4d) for an
+approximate distance and a lower bound; a lane whose bound already reaches
+the pool bound is dropped (status PRUNED, so a later encounter may
+re-estimate it).  Survivors enter the pool with their approximate distance
+and an ``approx`` flag; stage 2 (the fp32 row and exact distance,
+``gather_distance`` on the kernel engines) runs only when an approximate
+entry is picked for expansion, and for every approximate entry left in the
+pool at the end.  ``SearchResult.rerank_calls`` counts stage-2 evaluations
+(they also count as ``dist_calls``), ``sq8_calls`` stage-1 evaluations.
 
 The loop runs eagerly: its condition (some query not done, fewer than
 ``max_hops`` iterations) is read on the host once per iteration, and
@@ -35,8 +50,10 @@ Translation notes against the JAX engine:
   one batched loop per layer over an ``improved`` mask; a query adds to its
   distance count only while it still improves;
 * the exact distance is ``repro_torch.kernels.ref.l2sq_rows``, which sums in
-  the ``fused_expand`` kernel's order, so both engines see bit-equal
-  distances on the card.
+  the ``fused_expand`` and ``gather_distance`` kernels' order, and the
+  stage-1 estimate ``repro_torch.quant.sq8.sq8_estimate`` sums in the
+  ``sq8_distance`` kernel's order, so every engine sees bit-equal distances
+  on the card.
 
 Pad-row sentinel: ``graph_device_arrays`` appends one zero vector at row N;
 adjacency pad slots point at it, and pool slots holding no candidate carry
@@ -56,6 +73,7 @@ from repro_torch.core.spec import SearchSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import l2sq_rows
+from repro_torch.quant import sq8 as SQ
 
 STATUS_UNVISITED = 0
 STATUS_VISITED = 1
@@ -71,6 +89,8 @@ class SearchResult(NamedTuple):
     est_calls: torch.Tensor   # [B] int32 router estimates evaluated
     hops: torch.Tensor        # [B] int32 node expansions
     iters: int                # batch-level hop-loop iterations
+    rerank_calls: torch.Tensor  # [B] int32 stage-2 exact reranks (sq8 path)
+    sq8_calls: torch.Tensor     # [B] int32 stage-1 quantized estimates
 
 
 def graph_device_arrays(g: GraphIndex, device: DeviceLike = None) -> Dict[str, Any]:
@@ -79,7 +99,9 @@ def graph_device_arrays(g: GraphIndex, device: DeviceLike = None) -> Dict[str, A
     Row N of ``vectors`` (an all-zero vector, norm 1) is the sentinel every
     masked lane resolves to: adjacency pad slots point at it, dead beam
     slots expand it (its neighbour list is all pad), and pool slots holding
-    no candidate carry id N.
+    no candidate carry id N.  The SQ8 tables are added by
+    ``ensure_sq8_arrays``, which ``build_search_fn`` calls the first time an
+    sq8/both spec asks.
     """
     dev = resolve_device(device)
     n, d = g.n, g.dim
@@ -108,6 +130,26 @@ def graph_device_arrays(g: GraphIndex, device: DeviceLike = None) -> Dict[str, A
         out["upper_pos"] = pos_maps
         out["upper_nbrs"] = layer_nbrs
     return out
+
+
+def ensure_sq8_arrays(g: GraphIndex, arrays: Dict[str, Any]) -> Dict[str, Any]:
+    """Add the SQ8 tables to a device arrays dict (idempotent).
+
+    The grid is fit on the host to the real rows (``sq8_train``), the codes
+    are encoded there (``sq8_encode``; the pad row encodes the zero vector
+    with the same grid, its distances are always masked) and then moved to
+    the arrays' device.  Exact-only searches never pay for them.
+    """
+    if "sq8_codes" not in arrays:
+        dev = arrays["vectors"].device
+        qp = SQ.sq8_train(g.vectors)
+        vecs = np.concatenate([g.vectors, np.zeros((1, g.dim), np.float32)],
+                              axis=0)
+        for key, a in (("sq8_codes", SQ.sq8_encode(vecs, qp)),
+                       ("sq8_lo", qp.lo), ("sq8_scale", qp.scale),
+                       ("sq8_eps", qp.eps)):
+            arrays[key] = torch.as_tensor(np.ascontiguousarray(a), device=dev)
+    return arrays
 
 
 def _rank_tile(queries, X, metric):
@@ -213,18 +255,21 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
     batch: padded lanes start done, never expand a node, and count zero in
     every counter.  ``tombstone`` ([n+1] bool, pad row False, optional)
     marks deleted nodes: they keep routing, but are masked out of the
-    result pool after the loop (id -> n, dist -> +inf, re-sorted).
+    result pool after the loop (id -> n, dist -> +inf), before the sq8
+    path's final rerank, then re-sorted.
     """
     metric, efs, n = cfg.metric, cfg.efs, arrays["n"]
     W, engine = cfg.beam_width, cfg.engine
     rt = get_router(cfg.router)
     if not 1 <= W <= efs:
         raise ValueError("beam_width must be in [1, efs]")
-    if cfg.estimate == "angle" and not rt.prunes:
-        raise ValueError(f"estimate='angle' needs a pruning router, got "
-                         f"{cfg.router!r}")
-    if engine == "fused" and n >= 2 ** 29:
-        raise ValueError("the fused engine encodes ids as id*4+flags in "
+    if cfg.estimate in ("angle", "both") and not rt.prunes:
+        raise ValueError(f"estimate={cfg.estimate!r} needs a pruning router, "
+                         f"got {cfg.router!r}")
+    sq8_on = cfg.estimate in ("sq8", "both")
+    kernels = engine in ("fused", "unfused")
+    if kernels and n >= 2 ** 29:
+        raise ValueError("the kernel engines encode ids as id*4+flags in "
                          "int32: shard below 2^29 vectors or use "
                          "engine='torch'")
     dev = queries.device
@@ -241,6 +286,18 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
 
     nq = (torch.linalg.norm(queries, dim=1) if metric != "l2"
           else torch.ones((B,), dtype=torch.float32, device=dev))
+
+    def _exact_rerank(ids, mask):
+        """Stage 2: exact ranking distances for the pool entries in
+        ``mask``; the fp32 rows are read here and only here on the sq8
+        path, and other lanes report +inf."""
+        idx = torch.where(mask, ids, n)
+        if kernels:
+            eu2 = ops.gather_distance_pruned(idx, ~mask, queries, vecs)
+            r = _eu2_to_rank(eu2, nq[:, None], norms[idx.long()], metric)
+        else:
+            r = _rank_tile(queries, vecs[idx.long()], metric)
+        return torch.where(mask, r, inf)
 
     if cfg.use_hierarchy:
         entry, d_entry, calls0 = _descend(arrays, queries, metric)
@@ -261,17 +318,23 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
     pool_id = torch.full((B, efs), n, dtype=_I32, device=dev)
     pool_id[:, 0] = entry
     pool_exp = torch.zeros((B, efs), dtype=torch.bool, device=dev)
+    pool_apx = torch.zeros((B, efs), dtype=torch.bool, device=dev)
     status = torch.zeros((B, n + 1), dtype=torch.uint8, device=dev)
     status[rows, entry.long()] = STATUS_VISITED
     dcalls = calls0
     ecalls = torch.zeros((B,), dtype=_I32, device=dev)
+    rrcalls = torch.zeros((B,), dtype=_I32, device=dev)
+    sqcalls = torch.zeros((B,), dtype=_I32, device=dev)
     hops = torch.zeros((B,), dtype=_I32, device=dev)
     iters = 0
 
     prunes = rt.prunes
     ct_eff = rt.cos_theta_eff(cos_theta)
     rescue = W > 1 and prunes and rt.revisit_pruned and not rt.permanent
-    kernel_prunes = engine == "fused" and rt.kernel_estimate and not rescue
+    # with sq8 the fused fp32 kernel never runs, so the prune decision is
+    # taken outside it (the router hook or crouting_prune: the same f32 math)
+    kernel_prunes = (engine == "fused" and rt.kernel_estimate and not rescue
+                     and not sq8_on)
     best_slot = torch.arange(L, device=dev)[None, :] < M
 
     while iters < cfg.max_hops and not bool(done.all()):
@@ -293,6 +356,18 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
 
         c = torch.where(slot_live, pool_id.gather(1, beam_idx), n)    # [B, W]
         dc = pool_d.gather(1, beam_idx)                               # [B, W]
+        if sq8_on:
+            # stage-2 rerank at expansion: an approximate entry picked for
+            # the beam gets its exact distance (and loses its flag) before
+            # that distance is used as d(c, q) for the tile's estimates
+            apx = pool_apx.gather(1, beam_idx)
+            sel_apx = apx & slot_live
+            dc = torch.where(sel_apx, _exact_rerank(c, sel_apx), dc)
+            pool_d.scatter_(1, beam_idx, dc)
+            pool_apx.scatter_(1, beam_idx, apx & ~sel_apx)
+            nrr = sel_apx.sum(1, dtype=_I32)
+            rrcalls = rrcalls + nrr
+            dcalls = dcalls + nrr
         pool_exp.scatter_(1, beam_idx, pool_exp.gather(1, beam_idx) | slot_live)
 
         # --- dense [B, W*M] neighbour tile ---------------------------------
@@ -334,6 +409,9 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
 
         if not prunes or kernel_prunes:
             prune = torch.zeros_like(first)
+        elif engine == "unfused" and rt.kernel_estimate:
+            prune = ops.crouting_prune(ed, dcq_l, bound2, try_prune,
+                                       ct_eff)[1] != 0
         else:
             ctx = RouterContext(
                 arrays=arrays, queries=queries, nq=nq, c=c, dc=dc, nbrs=nbrs,
@@ -352,23 +430,54 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         else:
             compute = first & ~prune
 
-        # --- exact fp32 distances (pruned/masked lanes load no row) ---------
-        if engine == "fused":
-            d2eu, prune8 = ops.fused_expand(
-                nbrs, queries, ed, dcq_l, bound2, ct_eff, vecs,
-                eval_mask=compute,
-                prune_eligible=try_prune if kernel_prunes
-                else torch.zeros_like(try_prune))
-            if kernel_prunes:
-                # the kernel made the prune decision and skipped those rows
-                prune = prune8 != 0
-                compute = compute & ~prune
-            exact = _eu2_to_rank(d2eu, nq[:, None], nx, metric)
+        # --- distances: stage-1 quantized estimate (sq8) or exact fp32 -----
+        if sq8_on:
+            # stage 1: uint8 code rows -> estimate + lower bound for every
+            # surviving lane; no fp32 row is read here (that is stage 2)
+            sq8_args = (arrays["sq8_codes"], arrays["sq8_lo"],
+                        arrays["sq8_scale"], arrays["sq8_eps"])
+            if kernels:
+                ad2, lb2 = ops.sq8_estimate(nbrs, queries, compute, *sq8_args)
+            else:
+                codes, lo, scale, eps = sq8_args
+                xhat = SQ.sq8_dequantize_rows(
+                    codes[torch.where(compute, nbl, n)], lo, scale)
+                ad2, lb2 = SQ.sq8_estimate(queries, xhat, eps)
+                ad2 = torch.where(compute, ad2, inf)
+                lb2 = torch.where(compute, lb2, inf)
+            ad_rank = _eu2_to_rank(ad2, nq[:, None], nx, metric)
+            lb_rank = _eu2_to_rank(lb2, nq[:, None], nx, metric)
+            # a lane whose true distance provably cannot beat the pool
+            # bound is dropped without its fp32 row; PRUNED (not VISITED),
+            # so a later encounter may re-estimate it against a tighter bound
+            sq8_skip = (compute & pool_full[:, None]
+                        & (lb_rank >= upper[:, None]))
+            insert = compute & ~sq8_skip
+            sqcalls = sqcalls + compute.sum(1, dtype=_I32)
+            new_d = torch.where(insert, ad_rank, inf)
         else:
-            exact = _rank_tile(queries, vecs[torch.where(compute, nbl, n)],
-                               metric)
-        new_d = torch.where(compute, exact, inf)
-        dcalls = dcalls + compute.sum(1, dtype=_I32)
+            # exact fp32 distances (pruned/masked lanes load no row)
+            if engine == "fused":
+                d2eu, prune8 = ops.fused_expand(
+                    nbrs, queries, ed, dcq_l, bound2, ct_eff, vecs,
+                    eval_mask=compute,
+                    prune_eligible=try_prune if kernel_prunes
+                    else torch.zeros_like(try_prune))
+                if kernel_prunes:
+                    # the kernel made the prune decision and skipped those rows
+                    prune = prune8 != 0
+                    compute = compute & ~prune
+                exact = _eu2_to_rank(d2eu, nq[:, None], nx, metric)
+            elif engine == "unfused":
+                d2eu = ops.gather_distance_pruned(
+                    torch.where(compute, nbrs, n), ~compute, queries, vecs)
+                exact = _eu2_to_rank(d2eu, nq[:, None], nx, metric)
+            else:
+                exact = _rank_tile(queries, vecs[torch.where(compute, nbl, n)],
+                                   metric)
+            insert = compute
+            new_d = torch.where(compute, exact, inf)
+            dcalls = dcalls + compute.sum(1, dtype=_I32)
 
         # --- status scatter: unchanged lanes write the pad column's own
         # value to the pad column, so the scatter stays deterministic -------
@@ -376,48 +485,64 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         if rt.permanent:
             new_st = torch.full_like(st, STATUS_VISITED)
         else:
-            new_st = torch.where(compute, STATUS_VISITED, STATUS_PRUNED
+            new_st = torch.where(insert, STATUS_VISITED, STATUS_PRUNED
                                  ).to(torch.uint8)
         pad_val = status[:, n:n + 1].expand(B, L)
         status.scatter_(1, torch.where(change, nbl, n),
                         torch.where(change, new_st, pad_val))
 
         # --- pool merge (merge-then-truncate == evolving-bound insertion) --
-        new_id = torch.where(compute, nbrs, n)
-        if engine == "fused":
-            # the expanded flag rides the merge in the id's low bits:
-            # id*4 + approx*2 + expanded; the approx bit (the JAX engine's
-            # sq8 path) is 0 on this exact-only path
-            enc_pool = pool_id * 4 + pool_exp.to(_I32)
-            pool_d, enc = ops.pool_merge(pool_d, enc_pool, new_d, new_id * 4)
+        new_id = torch.where(insert, nbrs, n)
+        new_apx = insert if sq8_on else torch.zeros_like(insert)
+        if kernels:
+            # the approx and expanded flags ride the merge in the id's low
+            # bits: id*4 + approx*2 + expanded
+            enc_pool = pool_id * 4 + pool_apx.to(_I32) * 2 + pool_exp.to(_I32)
+            pool_d, enc = ops.pool_merge(pool_d, enc_pool, new_d,
+                                         new_id * 4 + new_apx.to(_I32) * 2)
             pool_id = enc >> 2
+            pool_apx = (enc & 2) == 2
             pool_exp = (enc & 1) == 1
         else:
             md = torch.cat([pool_d, new_d], dim=1)
             mi = torch.cat([pool_id, new_id], dim=1)
-            me = torch.cat([pool_exp, torch.zeros_like(compute)], dim=1)
+            me = torch.cat([pool_exp, torch.zeros_like(insert)], dim=1)
+            ma = torch.cat([pool_apx, new_apx], dim=1)
             # lexicographic (dist, id): the kernel's tie-break
             order = _lexsort_dist_id(md, mi)[:, :efs]
-            pool_d, pool_id, pool_exp = (md.gather(1, order),
-                                         mi.gather(1, order),
-                                         me.gather(1, order))
+            pool_d, pool_id, pool_exp, pool_apx = (
+                md.gather(1, order), mi.gather(1, order),
+                me.gather(1, order), ma.gather(1, order))
 
         hops = hops + slot_live.sum(1, dtype=_I32)
         iters += 1
 
     if tombstone is not None:
         # emission-time masking: dead entries routed normally; here they
-        # collapse to the pad sentinel and sort behind the survivors
+        # collapse to the pad sentinel, so neither the final rerank nor the
+        # caller ever sees them
         dead = tombstone.to(dev)[pool_id.long()]
         pool_d = torch.where(dead, inf, pool_d)
         pool_id = torch.where(dead, n, pool_id)
+    if sq8_on:
+        # stage-2 final rerank: every approximate survivor still in the pool
+        # gets its exact distance; entries displaced earlier never paid
+        # their fp32 row
+        mask = pool_apx & (pool_id < n)
+        pool_d = torch.where(mask, _exact_rerank(pool_id, mask), pool_d)
+        nrr = mask.sum(1, dtype=_I32)
+        rrcalls = rrcalls + nrr
+        dcalls = dcalls + nrr
+    if sq8_on or tombstone is not None:
         order = _lexsort_dist_id(pool_d, pool_id)
         pool_d, pool_id = pool_d.gather(1, order), pool_id.gather(1, order)
     if valid is not None:
-        dcalls, ecalls, hops = (torch.where(valid, a, 0)
-                                for a in (dcalls, ecalls, hops))
+        dcalls, ecalls, rrcalls, sqcalls, hops = (
+            torch.where(valid, a, 0)
+            for a in (dcalls, ecalls, rrcalls, sqcalls, hops))
     return SearchResult(ids=pool_id, dists=pool_d, dist_calls=dcalls,
-                        est_calls=ecalls, hops=hops, iters=iters)
+                        est_calls=ecalls, hops=hops, iters=iters,
+                        rerank_calls=rrcalls, sq8_calls=sqcalls)
 
 
 # --- engine cache ------------------------------------------------------------
@@ -473,6 +598,10 @@ def build_search_fn(g: GraphIndex, cfg: SearchSpec, tombstones: bool = False,
         del _ENGINE_CACHE[key]
 
     arrays = _graph_arrays_cached(g, dev)
+    if cfg.estimate in ("sq8", "both"):
+        # upgrade the shared cached dict lazily: exact-only searches never
+        # pay for the encode pass or the code table
+        ensure_sq8_arrays(g, arrays)
 
     def _queries(q):
         return torch.as_tensor(q, dtype=torch.float32, device=dev)

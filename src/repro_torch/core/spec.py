@@ -11,11 +11,18 @@ Engines (``SearchSpec.engine``):
   ``fused_expand`` (estimate + prune + conditional row load + exact
   distance) and ``pool_merge`` (the sorted-pool merge).  On CPU tensors the
   kernel wrappers run their plain PyTorch versions.  The default.
+* ``"unfused"`` — the composable kernel engine, the counterpart of
+  ``"pallas_unfused"``: ``crouting_prune`` (estimate + prune), then
+  ``gather_distance`` under the prune mask, then ``pool_merge``.
 * ``"torch"`` — the plain engine, the counterpart of ``"jnp"``: the same
   loop in plain PyTorch ops (gather + distance, concat + two stable sorts).
 
-``estimate="sq8"|"both"`` (the two-stage quantized path) is not ported yet
-and raises ``NotImplementedError``; it is the next slice in ROADMAP.md.
+Estimates (``SearchSpec.estimate``): ``"exact"`` and ``"angle"`` give
+every surviving lane its exact fp32 distance; ``"sq8"`` and ``"both"`` run
+the two-stage path (an SQ8 estimate and lower bound from uint8 code rows,
+the ``sq8_distance`` kernel, then an exact rerank through
+``gather_distance`` only for candidates that are expanded or returned).
+``"angle"`` and ``"both"`` need a pruning router.
 
 The fields split into two cost classes: engine-shaping fields key the
 engine cache (``canonical()``), request-only fields (``k``/``cos_theta``)
@@ -29,10 +36,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-ENGINES = ("fused", "torch")
-ESTIMATES = ("exact", "angle")
+ENGINES = ("fused", "unfused", "torch")
+ESTIMATES = ("exact", "angle", "sq8", "both")
 BEAM_PRUNE_POLICIES = ("best", "all")
-NOT_PORTED_ESTIMATES = ("sq8", "both")
 
 _K_DEFAULT = 10
 
@@ -56,24 +62,23 @@ class SearchSpec:
     max_hops: int = 4096          # hard per-query expansion budget
     use_hierarchy: bool = True
     beam_width: int = 1           # W frontier nodes expanded per iteration
-    engine: str = "fused"         # fused (kernels) | torch (plain)
+    engine: str = "fused"         # fused | unfused (kernels) | torch (plain)
     # Which beam slots' lanes are eligible for the router's prune test:
     # "best" — only the best slot's neighbours (what sequential Algorithm 2
     # would test now); "all" — every slot's neighbours.
     beam_prune: str = "best"
     # "exact" — every surviving lane gets its exact fp32 distance; "angle" —
-    # the same, but requires a pruning router.
+    # the same, but requires a pruning router.  "sq8" — surviving lanes
+    # read the uint8 code row for an estimate + lower bound; lanes whose
+    # bound reaches the pool bound are dropped without their fp32 row, the
+    # others enter the pool approximate and are reranked exactly when
+    # expanded or returned.  "both" — sq8 behind a pruning router.
     estimate: str = "exact"
     # Request-only fields (do not shape the engine):
     k: int = _K_DEFAULT           # how many results to return per query
     cos_theta: Optional[float] = None   # None -> the index's angle profile
 
     def __post_init__(self):
-        if self.estimate in NOT_PORTED_ESTIMATES:
-            raise NotImplementedError(
-                f"estimate={self.estimate!r} (the two-stage SQ8 path with "
-                "the sq8_distance and gather_distance kernels) is not ported "
-                "to repro_torch yet: it is the next slice in ROADMAP.md")
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; "
                              f"choose from {ENGINES}")
@@ -114,6 +119,10 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+# the per-query [B] counters of SearchStats, in summary() order
+_COUNTERS = ("dist_calls", "est_calls", "rerank_calls", "sq8_calls", "hops")
+
+
 @dataclasses.dataclass
 class SearchStats:
     """Typed per-search statistics: per-query ``[B]`` int arrays plus the
@@ -121,6 +130,8 @@ class SearchStats:
 
     dist_calls: np.ndarray       # exact fp32 distance evaluations
     est_calls: np.ndarray        # router estimate evaluations
+    rerank_calls: np.ndarray     # stage-2 exact reranks (sq8 path)
+    sq8_calls: np.ndarray        # stage-1 quantized estimates
     hops: np.ndarray             # node expansions
     iters: int                   # batch-level hop-loop iterations
     router: str = "none"
@@ -129,7 +140,9 @@ class SearchStats:
     def from_result(cls, res, router: str = "none") -> "SearchStats":
         """Build from an engine ``SearchResult`` (device tensors -> host)."""
         return cls(dist_calls=_host(res.dist_calls),
-                   est_calls=_host(res.est_calls), hops=_host(res.hops),
+                   est_calls=_host(res.est_calls),
+                   rerank_calls=_host(res.rerank_calls),
+                   sq8_calls=_host(res.sq8_calls), hops=_host(res.hops),
                    iters=int(res.iters), router=router)
 
     @classmethod
@@ -143,15 +156,14 @@ class SearchStats:
         if len(routers) > 1:
             raise ValueError(f"SearchStats.merge: mixed routers {routers}")
         return cls(
-            dist_calls=np.concatenate([s.dist_calls for s in stats_list]),
-            est_calls=np.concatenate([s.est_calls for s in stats_list]),
-            hops=np.concatenate([s.hops for s in stats_list]),
+            **{f: np.concatenate([getattr(s, f) for s in stats_list])
+               for f in _COUNTERS},
             iters=max(int(s.iters) for s in stats_list),
             router=stats_list[0].router)
 
     def summary(self) -> dict:
         """JSON-ready digest (per-query means)."""
         out = {"router": self.router, "iters": int(self.iters)}
-        for f in ("dist_calls", "est_calls", "hops"):
+        for f in _COUNTERS:
             out[f] = round(float(np.mean(getattr(self, f))), 1)
         return out

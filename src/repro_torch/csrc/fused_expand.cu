@@ -33,26 +33,23 @@
 //   * the estimate uses __fmul_rn / __fadd_rn / __fsub_rn in the plain
 //     version's order, so nvcc cannot contract it into FMAs and the prune
 //     mask is bit-equal (NaN estimates never prune, as in jnp.maximum);
-//   * lane t of the warp accumulates elements 128*j + 4*t + c in (j, c)
-//     order, again without FMA contraction, and the butterfly adds strides
-//     16, 8, 4, 2, 1: l2sq_rows in ref.py sums in exactly this order.
+//   * the row sum is warp_rows.cuh's (lane t accumulates elements
+//     128*j + 4*t + c in (j, c) order without FMA contraction, then a
+//     butterfly over strides 16, 8, 4, 2, 1): l2sq_rows in ref.py sums in
+//     exactly this order.
 //
 // No wgmma or TMA: a row per lane is a gather, not a tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "warp_rows.cuh"
+
 namespace {
 
-constexpr int kWarp = 32;
+using warp_rows::kWarp;
 constexpr int kWarpsPerCta = 4;
 constexpr int kLanesPerCta = 16;
-constexpr int kPass = kWarp * 4;   // floats one warp pass covers
-
-__device__ __forceinline__ float add_sq(float acc, float q, float x) {
-  const float df = __fsub_rn(q, x);
-  return __fadd_rn(acc, __fmul_rn(df, df));
-}
 
 __global__ void __launch_bounds__(kWarpsPerCta * kWarp)
 fused_expand_kernel(const int32_t* __restrict__ nbrs,
@@ -100,28 +97,8 @@ fused_expand_kernel(const int32_t* __restrict__ nbrs,
     if (!fetch_s[s]) continue;   // warp-uniform: pruned lanes load nothing
     const size_t o = static_cast<size_t>(b) * L + lane0 + s;
     const float* row = table + static_cast<size_t>(nbrs[o]) * d;
-    float acc = 0.0f;
-    for (int base = 0; base < d; base += kPass) {
-      const int e0 = base + 4 * t;
-      if (vec4) {
-        if (e0 < d) {
-          const float4 x = __ldg(reinterpret_cast<const float4*>(row + e0));
-          acc = add_sq(acc, q_s[e0], x.x);
-          acc = add_sq(acc, q_s[e0 + 1], x.y);
-          acc = add_sq(acc, q_s[e0 + 2], x.z);
-          acc = add_sq(acc, q_s[e0 + 3], x.w);
-        }
-      } else {
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (e0 + c < d) acc = add_sq(acc, q_s[e0 + c], __ldg(row + e0 + c));
-        }
-      }
-    }
-#pragma unroll
-    for (int off = kWarp / 2; off > 0; off >>= 1) {
-      acc = __fadd_rn(acc, __shfl_xor_sync(0xffffffffu, acc, off));
-    }
+    const float acc =
+        warp_rows::warp_sum(warp_rows::l2sq_partial(row, q_s, d, vec4, t));
     if (t == 0) dist_out[o] = acc;
   }
 }

@@ -7,8 +7,9 @@ repository root (listed in ``.gitignore``):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
 
-The file name carries a hash of the source and flags, so an edited kernel
-is never served from a stale library.  ``build_all`` starts one ``nvcc``
+The file name carries a hash of the source, of every header it includes
+from ``csrc/`` (``#include "..."``, followed recursively) and of the flags,
+so an edited kernel or header is never served from a stale library.  ``build_all`` starts one ``nvcc``
 per source at once and waits for all of them.  Importing this module
 compiles nothing (the CPU-only test machines have no ``nvcc``).
 """
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +27,8 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-KERNEL_SOURCES = ("fused_expand", "pool_merge")
+KERNEL_SOURCES = ("fused_expand", "pool_merge", "sq8_distance",
+                  "gather_distance", "crouting_prune")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,10 +54,27 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin); the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def source_files(name: str) -> list:
+    """``csrc/<name>.cu`` and every ``csrc/`` file it includes with
+    ``#include "..."``, recursively, in a fixed order."""
+    seen, todo = [], [f"{name}.cu"]
+    while todo:
+        f = todo.pop()
+        if f in seen:
+            continue
+        seen.append(f)
+        todo += [m.decode() for m in _INCLUDE.findall((CSRC / f).read_bytes())]
+    return sorted(seen)
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{tag}.so"
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for f in source_files(name):
+        h.update(f.encode() + b"\0" + (CSRC / f).read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _tmp_path(out: Path) -> Path:
@@ -100,3 +120,17 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     with _lock:
         return _LIBS.setdefault(name, lib)
+
+
+def check_args(kernel: str, dev, args) -> None:
+    """Raise ``ValueError`` unless each ``(name, tensor, dtype, shape)`` in
+    ``args`` is a contiguous tensor of that dtype and shape on ``dev``
+    (``shape=None`` skips the shape check)."""
+    for name, t, dt, shape in args:
+        if (t.device != dev or t.dtype != dt or not t.is_contiguous()
+                or (shape is not None and tuple(t.shape) != tuple(shape))):
+            raise ValueError(
+                f"{kernel}: {name} must be a contiguous {dt} tensor"
+                f"{'' if shape is None else f' of shape {tuple(shape)}'} on "
+                f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+                f"(contiguous={t.is_contiguous()})")

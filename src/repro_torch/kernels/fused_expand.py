@@ -40,19 +40,14 @@ def fused_expand_cuda(nbrs, queries, ed, dcq, bound2, cos_theta: float,
     B, L = nbrs.shape
     d = queries.shape[1]
     dev = nbrs.device
-    for name, t, dt in (("nbrs", nbrs, torch.int32),
-                        ("queries", queries, torch.float32),
-                        ("ed", ed, torch.float32), ("dcq", dcq, torch.float32),
-                        ("bound2", bound2, torch.float32),
-                        ("eval_mask", eval_mask, torch.int8),
-                        ("prune_eligible", prune_eligible, torch.int8),
-                        ("table", table, torch.float32)):
-        if t.device != dev or t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"fused_expand_cuda: {name} must be a contiguous "
-                             f"{dt} tensor on {dev}, got {t.dtype} on "
-                             f"{t.device} (contiguous={t.is_contiguous()})")
-    if table.shape[1] != d or queries.shape[0] != B:
-        raise ValueError("fused_expand_cuda: shape mismatch")
+    build.check_args("fused_expand_cuda", dev, (
+        ("nbrs", nbrs, torch.int32, None),
+        ("queries", queries, torch.float32, (B, d)),
+        ("ed", ed, torch.float32, (B, L)), ("dcq", dcq, torch.float32, (B, L)),
+        ("bound2", bound2, torch.float32, (B, L)),
+        ("eval_mask", eval_mask, torch.int8, (B, L)),
+        ("prune_eligible", prune_eligible, torch.int8, (B, L)),
+        ("table", table, torch.float32, (table.shape[0], d))))
     if d > _MAX_SMEM_FLOATS or B > 65535:
         raise ValueError(f"fused_expand_cuda: d={d} or B={B} beyond the "
                          "kernel's limits (d <= 12288, B <= 65535)")

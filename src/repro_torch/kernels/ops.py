@@ -9,8 +9,9 @@ tensors lie:
   build or launch raises; nothing falls back to the plain version.
 * CPU tensors run the plain PyTorch version (``repro_torch.kernels.ref``).
 
-``LAUNCHES`` counts kernel launches per wrapper, so a run can show that the
-main path went through the kernels (``chip_smoke.py`` resets and reads it).
+``LAUNCHES`` counts launches per kernel (``gather_distance`` serves both
+gather wrappers), so a run can show that the main path went through the
+kernels (``chip_smoke.py`` resets and reads it).
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ import torch
 
 from repro_torch.kernels import ref
 
-LAUNCHES: Dict[str, int] = {"fused_expand": 0, "pool_merge": 0}
+LAUNCHES: Dict[str, int] = {"fused_expand": 0, "pool_merge": 0,
+                            "sq8_distance": 0, "gather_distance": 0,
+                            "crouting_prune": 0}
 
 
 def reset_launch_counts() -> None:
@@ -36,6 +39,10 @@ def _lanes(x, B, L, dtype):
     return x.contiguous()
 
 
+def _f32(x):
+    return x.to(torch.float32).contiguous()
+
+
 def prepare_fused_expand(nbrs, queries, ed, dcq, bound2, cos_theta, table,
                          eval_mask=None, prune_eligible=None):
     """The arguments ``fused_expand`` hands to its kernel (or plain
@@ -43,7 +50,7 @@ def prepare_fused_expand(nbrs, queries, ed, dcq, bound2, cos_theta, table,
     in-range ids, and ``cos_theta`` rounded to f32."""
     B, L = nbrs.shape
     nbrs = nbrs.to(torch.int32).contiguous()
-    in_range = (nbrs >= 0) & (nbrs < table.shape[0])
+    in_range = ref.in_range(nbrs, table.shape[0])
     eval_mask = in_range if eval_mask is None else (eval_mask != 0) & in_range
     prune_eligible = (in_range if prune_eligible is None
                       else (prune_eligible != 0) & in_range)
@@ -92,3 +99,96 @@ def pool_merge(pool_d, pool_i, new_d, new_i):
         LAUNCHES["pool_merge"] += 1
         return out
     return ref.pool_merge_ref(*args)
+
+
+def prepare_sq8_estimate(nbrs, queries, eval_mask, codes, lo, scale, eps):
+    """The arguments ``sq8_estimate`` hands to its kernel (or plain
+    version): int32 ids, the eval mask intersected with the in-range ids as
+    int8, f32 queries and grid arrays, all contiguous."""
+    nbrs = nbrs.to(torch.int32).contiguous()
+    in_range = ref.in_range(nbrs, codes.shape[0])
+    eval_mask = in_range if eval_mask is None else (eval_mask != 0) & in_range
+    return (nbrs, _f32(queries), eval_mask.to(torch.int8).contiguous(),
+            codes.contiguous(), _f32(lo), _f32(scale), _f32(eps))
+
+
+def sq8_estimate(nbrs, queries, eval_mask, codes, lo, scale, eps):
+    """Stage-1 SQ8 estimate + conservative lower bound over a neighbour
+    tile (the two-stage search path).
+
+    nbrs [B, L] rows of the uint8 code table ``codes`` [N, d]; lanes with
+    ``eval_mask == 0`` or ids outside ``[0, N)`` read no code row and report
+    +inf in both outputs.  Returns (ad2, lb2) [B, L] f32 in
+    squared-Euclidean space.
+    """
+    args = prepare_sq8_estimate(nbrs, queries, eval_mask, codes, lo, scale,
+                                eps)
+    if args[0].is_cuda:
+        from repro_torch.kernels.sq8_distance import sq8_distance_cuda
+        out = sq8_distance_cuda(*args)
+        LAUNCHES["sq8_distance"] += 1
+        return out
+    return ref.sq8_estimate_ref(*args)
+
+
+def prepare_gather_distance(indices, queries, table, skip=None):
+    """The arguments the gather wrappers hand to the kernel: int32 ids, an
+    int8 skip mask that also covers every id outside ``[0, N)``, f32
+    queries, all contiguous."""
+    idx = indices.to(torch.int32).contiguous()
+    out = ~ref.in_range(idx, table.shape[0])
+    if skip is not None:
+        out = out | (skip != 0)
+    return idx, out.to(torch.int8).contiguous(), _f32(queries), table
+
+
+def _gather(idx, skip, queries, table):
+    if idx.is_cuda:
+        from repro_torch.kernels.gather_distance import gather_distance_cuda
+        out = gather_distance_cuda(idx, skip, queries, table)
+        LAUNCHES["gather_distance"] += 1
+        return out
+    return ref.gather_distance_ref(idx, queries, table, skip)
+
+
+def gather_distance(indices, queries, table):
+    """``dist2[b, m] = |q_b - table[indices[b, m]]|^2`` [B, M] f32, summed
+    in the kernels' order.  Ids outside ``[0, N)`` read no row and report
+    +inf (the JAX wrapper leaves them to the caller)."""
+    return _gather(*prepare_gather_distance(indices, queries, table))
+
+
+def gather_distance_pruned(nbr_ids, prune_mask, queries, table):
+    """The exact path under a prune mask: lanes with ``prune_mask != 0``
+    read no row and report +inf.  On the TPU pruned lanes were remapped to
+    the pad row so that their DMA was de-duplicated; the CUDA kernel simply
+    skips them."""
+    return _gather(*prepare_gather_distance(nbr_ids, queries, table,
+                                            skip=prune_mask))
+
+
+def prepare_crouting_prune(ed, dcq, bound2, valid, cos_theta):
+    """The arguments ``crouting_prune`` hands to its kernel (or plain
+    version): contiguous [B, M] f32 lanes (dcq/bound2 broadcast from [B]),
+    an int8 valid mask and ``cos_theta`` rounded to f32."""
+    B, M = ed.shape
+    return (_f32(ed), _lanes(dcq, B, M, torch.float32),
+            _lanes(bound2, B, M, torch.float32),
+            (valid != 0).to(torch.int8).contiguous(),
+            float(torch.tensor(float(cos_theta), dtype=torch.float32)))
+
+
+def crouting_prune(ed, dcq, bound2, valid, cos_theta):
+    """Edge-angle estimate + prune mask over a [B, M] tile.
+
+    dcq/bound2 may be [B] (broadcast over lanes) or per-lane [B, M].
+    Returns (est2 [B, M] f32, prune [B, M] int8); ``prune = valid &
+    (est2 >= bound2)``, and a NaN estimate never prunes.
+    """
+    args = prepare_crouting_prune(ed, dcq, bound2, valid, cos_theta)
+    if args[0].is_cuda:
+        from repro_torch.kernels.crouting_prune import crouting_prune_cuda
+        out = crouting_prune_cuda(*args)
+        LAUNCHES["crouting_prune"] += 1
+        return out
+    return ref.crouting_prune_ref(*args)

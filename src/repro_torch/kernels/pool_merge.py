@@ -44,15 +44,11 @@ def pool_merge_cuda(pool_d, pool_i, new_d, new_i):
     B, P = pool_d.shape
     L = new_d.shape[1]
     dev = pool_d.device
-    for name, t, dt, shape in (("pool_d", pool_d, torch.float32, (B, P)),
-                               ("pool_i", pool_i, torch.int32, (B, P)),
-                               ("new_d", new_d, torch.float32, (B, L)),
-                               ("new_i", new_i, torch.int32, (B, L))):
-        if (t.device != dev or t.dtype != dt or not t.is_contiguous()
-                or tuple(t.shape) != shape):
-            raise ValueError(f"pool_merge_cuda: {name} must be a contiguous "
-                             f"{dt} tensor of shape {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    build.check_args("pool_merge_cuda", dev, (
+        ("pool_d", pool_d, torch.float32, (B, P)),
+        ("pool_i", pool_i, torch.int32, (B, P)),
+        ("new_d", new_d, torch.float32, (B, L)),
+        ("new_i", new_i, torch.int32, (B, L))))
     net = next_pow2(P + L)
     if net > MAX_NET:
         raise ValueError(f"pool_merge_cuda: P + L = {P + L} exceeds the "

@@ -4,12 +4,13 @@ oracles the CUDA kernels are held against on the card).
 Counterpart of ``repro.kernels.ref``.  Two deliberate orders make the
 kernels' outputs reproducible bit for bit in plain PyTorch:
 
-* ``l2sq_rows`` sums the squared differences in the CUDA kernel's order
-  (see its docstring), so the fused kernel's distances equal the plain
-  engine's exactly and the two engines walk the same graph path;
+* every per-row sum (``l2sq_rows``, and the ``ad2`` and slack sums of
+  ``sq8_estimate_ref``) goes through ``warp_order_sum``, which adds in the
+  CUDA kernels' order (see its docstring), so a kernel's distances equal
+  the plain engine's exactly and the two engines walk the same graph path;
 * the edge-angle estimate is evaluated as
   ``(ed*ed + dcq*dcq) - ((2*ed)*dcq)*ct`` with each product and sum rounded
-  separately (the CUDA kernel uses ``__fmul_rn``/``__fadd_rn``/``__fsub_rn``
+  separately (the CUDA kernels use ``__fmul_rn``/``__fadd_rn``/``__fsub_rn``
   so that nvcc cannot contract them into FMAs), then clamped at 0 with NaN
   kept, as ``jnp.maximum`` keeps it.
 """
@@ -17,39 +18,50 @@ from __future__ import annotations
 
 import torch
 
-# The CUDA kernel reads a row as float4 chunks of 128 floats per warp pass:
-# lane t of pass j holds elements 128*j + 4*t + c, c = 0..3.
+# The CUDA kernels read a row in chunks of 4 elements, 128 elements per warp
+# pass: lane t of pass j holds elements 128*j + 4*t + c, c = 0..3.
 _WARP = 32
 _VEC = 4
 _PASS = _WARP * _VEC
 
+_INF = float("inf")
 
-def l2sq_rows(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Squared L2 distance of each query to its rows, in the kernel's order.
 
-    q ``[B, d]``, rows ``[B, L, d]`` -> ``[B, L]`` float32.  Per warp lane t
-    the kernel accumulates ``(q_e - x_e)^2`` over its elements e = 128*j +
+def warp_order_sum(terms: torch.Tensor) -> torch.Tensor:
+    """Sum ``terms [..., d]`` over the last axis in the kernels' order.
+
+    Per warp lane t the kernel accumulates the terms of elements e = 128*j +
     4*t + c in (j, c) order, starting from 0, then sums the 32 lane partials
     with a ``__shfl_xor_sync`` butterfly (strides 16, 8, 4, 2, 1).  Padding
     d to a multiple of 128 with zeros adds exact zeros, so every d follows
     the same formula.
     """
-    B, L, d = rows.shape
-    diff = rows.to(torch.float32) - q.to(torch.float32)[:, None, :]
-    sq = diff * diff
+    terms = terms.to(torch.float32)
+    lead, d = terms.shape[:-1], terms.shape[-1]
     pad = (-d) % _PASS
     if pad:
-        sq = torch.nn.functional.pad(sq, (0, pad))
-    sq = sq.reshape(B, L, -1, _WARP, _VEC)
-    acc = torch.zeros((B, L, _WARP), dtype=torch.float32, device=rows.device)
-    for j in range(sq.shape[2]):
+        terms = torch.nn.functional.pad(terms, (0, pad))
+    terms = terms.reshape(*lead, -1, _WARP, _VEC)
+    acc = torch.zeros((*lead, _WARP), dtype=torch.float32,
+                      device=terms.device)
+    for j in range(terms.shape[-3]):
         for c in range(_VEC):
-            acc = acc + sq[:, :, j, :, c]
+            acc = acc + terms[..., j, :, c]
     width = _WARP
     while width > 1:
         width //= 2
         acc = acc[..., :width] + acc[..., width:2 * width]
     return acc[..., 0]
+
+
+def l2sq_rows(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Squared L2 distance of each query to its rows, in the kernels' order.
+
+    q ``[B, d]``, rows ``[B, L, d]`` -> ``[B, L]`` float32: the squared
+    differences summed by ``warp_order_sum``.
+    """
+    diff = rows.to(torch.float32) - q.to(torch.float32)[:, None, :]
+    return warp_order_sum(diff * diff)
 
 
 def edge_angle_est2(ed, dcq, cos_theta: float) -> torch.Tensor:
@@ -108,3 +120,43 @@ def pool_merge_ref(pool_d, pool_i, new_d, new_i):
     o = torch.sort(d, dim=1, stable=True).indices
     P = pool_d.shape[1]
     return d.gather(1, o)[:, :P], i.gather(1, o)[:, :P]
+
+
+def in_range(ids, n_rows):
+    """Ids that name a row of an ``n_rows``-row table."""
+    return (ids >= 0) & (ids < n_rows)
+
+
+def sq8_estimate_ref(nbrs, queries, eval_mask, codes, lo, scale, eps):
+    """Plain version of the SQ8 stage-1 kernel: dequantize each lane's code
+    row, then ``repro_torch.quant.sq8.sq8_estimate`` (the one bound
+    implementation).  Lanes not evaluated, or with ids outside
+    ``[0, codes.shape[0])``, report +inf in both outputs."""
+    from repro_torch.quant.sq8 import sq8_dequantize_rows, sq8_estimate
+
+    n = codes.shape[0]
+    fetch = in_range(nbrs, n)
+    if eval_mask is not None:
+        fetch = fetch & (eval_mask != 0)
+    safe = torch.where(fetch, nbrs, n - 1).long()
+    xhat = sq8_dequantize_rows(codes[safe], lo, scale)       # [B, L, d]
+    ad2, lb2 = sq8_estimate(queries, xhat, eps)
+    return (torch.where(fetch, ad2, _INF), torch.where(fetch, lb2, _INF))
+
+
+def gather_distance_ref(indices, queries, table, skip=None):
+    """``dist2[b, m] = |q_b - table[indices[b, m]]|^2`` in the kernels'
+    order.  Lanes marked in ``skip`` (int8/bool, optional) or with ids
+    outside ``[0, table.shape[0])`` read no row and report +inf."""
+    n = table.shape[0]
+    fetch = in_range(indices, n)
+    if skip is not None:
+        fetch = fetch & (skip == 0)
+    safe = torch.where(fetch, indices, n - 1).long()
+    d2 = l2sq_rows(queries, table[safe])
+    return torch.where(fetch, d2, _INF)
+
+
+def gather_distance_pruned_ref(nbr_ids, prune_mask, queries, table):
+    """The exact path under a prune mask: pruned lanes report +inf."""
+    return gather_distance_ref(nbr_ids, queries, table, skip=prune_mask)

@@ -93,10 +93,12 @@ def test_non_spec_search_arguments_raise_type_error(ds, both):
         t.search(ds.queries, spec={"k": 10})
 
 
-def test_sq8_estimate_and_nsg_are_not_ported(ds):
+def test_both_needs_a_pruning_router_and_nsg_is_not_ported(ds, both):
+    _, t = both
     for est in ("sq8", "both"):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            SearchSpec(router="crouting", estimate=est)
+        SearchSpec(router="crouting", estimate=est)
+    with pytest.raises(ValueError, match="pruning router"):
+        t.search(ds.queries, spec=SearchSpec(router="none", estimate="both"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         AnnIndex.build(ds.base[:50], graph="nsg", device="cpu")
     with pytest.raises(ValueError, match="engine"):
@@ -124,16 +126,21 @@ def test_build_search_fn_caches_and_purges_dead_graphs(ds):
 
 
 def test_search_stats_merge_and_summary():
-    a = SearchStats(np.array([1, 2]), np.array([0, 1]), np.array([3, 3]), 4,
-                    "crouting")
-    b = SearchStats(np.array([5]), np.array([2]), np.array([1]), 7, "crouting")
+    def stats(dc, ec, rr, sq, hops, iters, router="crouting"):
+        return SearchStats(dist_calls=np.array(dc), est_calls=np.array(ec),
+                           rerank_calls=np.array(rr), sq8_calls=np.array(sq),
+                           hops=np.array(hops), iters=iters, router=router)
+
+    a = stats([1, 2], [0, 1], [1, 0], [6, 8], [3, 3], 4)
+    b = stats([5], [2], [2], [9], [1], 7)
     m = SearchStats.merge([a, b])
     assert m.iters == 7 and list(m.dist_calls) == [1, 2, 5]
+    assert list(m.rerank_calls) == [1, 0, 2] and list(m.sq8_calls) == [6, 8, 9]
     assert m.summary() == {"router": "crouting", "iters": 7,
-                           "dist_calls": 2.7, "est_calls": 1.0, "hops": 2.3}
+                           "dist_calls": 2.7, "est_calls": 1.0,
+                           "rerank_calls": 1.0, "sq8_calls": 7.7, "hops": 2.3}
     with pytest.raises(ValueError):
-        SearchStats.merge([a, SearchStats(a.dist_calls, a.est_calls, a.hops,
-                                          1, "none")])
+        SearchStats.merge([a, stats([1], [0], [0], [0], [1], 1, "none")])
 
 
 def test_default_device_raises_without_a_gpu(ds):
@@ -154,12 +161,16 @@ mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
+new = ["repro_torch.quant.sq8", "repro_torch.kernels.sq8_distance",
+       "repro_torch.kernels.gather_distance",
+       "repro_torch.kernels.crouting_prune"]
+assert all(m in mods for m in new), (new, mods)
 import chip_smoke
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "repro"
        or m.startswith("repro.")]
 assert not bad, bad
-assert len(mods) >= 15, mods
+assert len(mods) >= 20, mods
 print("ok", len(mods))
 """.format(repo=REPO)
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))

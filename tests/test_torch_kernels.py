@@ -181,7 +181,15 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
                      torch.as_tensor(table))
     pd, pi, nd, ni = _merge_inputs(0, 2, 8, 8)
     ops.pool_merge(*map(torch.as_tensor, (pd, pi, nd, ni)))
-    assert ops.LAUNCHES == {"fused_expand": 0, "pool_merge": 0}
+    t = torch.as_tensor
+    ops.sq8_estimate(t(nbrs), t(q), t(ev), t(table).to(torch.uint8),
+                     t(table[0]), t(table[1]).abs(), t(table[2]).abs())
+    ops.gather_distance(t(nbrs), t(q), t(table))
+    ops.gather_distance_pruned(t(nbrs), t(ev), t(q), t(table))
+    ops.crouting_prune(t(ed), t(dcq), t(b2), t(el), 0.1)
+    assert ops.LAUNCHES == {"fused_expand": 0, "pool_merge": 0,
+                            "sq8_distance": 0, "gather_distance": 0,
+                            "crouting_prune": 0}
 
 
 def test_build_compiles_nothing_on_import_and_needs_nvcc(monkeypatch):
@@ -198,6 +206,22 @@ def test_build_compiles_nothing_on_import_and_needs_nvcc(monkeypatch):
     for name in build.KERNEL_SOURCES:
         assert (build.CSRC / f"{name}.cu").is_file()
         assert build._lib_path(name).name.startswith(name + "-")
+
+
+def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
+    """An edited header must not be served from a stale library: the
+    library name hashes the source and every csrc file it includes."""
+    for name in ("fused_expand", "gather_distance", "sq8_distance"):
+        assert "warp_rows.cuh" in build.source_files(name)
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n'
+                                   '#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build.source_files("k") == ["a.cuh", "b.cuh", "k.cu"]
+    before = build._lib_path("k")
+    (tmp_path / "b.cuh").write_text("// v2\n")
+    assert build._lib_path("k") != before
 
 
 # --- on the card only ---------------------------------------------------------

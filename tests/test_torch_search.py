@@ -2,12 +2,15 @@
 
 One graph is built by the JAX package and carried to the port with
 ``AnnIndex.from_payload``; the same numpy queries go through
-``repro``'s ``engine="jnp"`` and through both port engines on the CPU
-(``"torch"``, and ``"fused"``, whose kernel wrappers run their plain
-versions on CPU tensors — which exercises the in-kernel prune path and the
-``id*4+flags`` pool encoding).  Ids, every counter and ``iters`` must be
-equal; distances within rtol/atol 1e-5 (the port sums squared differences
-in the CUDA kernel's order, XLA in its own).
+``repro``'s ``engine="jnp"`` and through all three port engines on the CPU
+(``"torch"``; ``"fused"`` and ``"unfused"``, whose kernel wrappers run their
+plain versions on CPU tensors — which exercises the in-kernel prune path,
+the ``crouting_prune`` + masked-gather pipeline and the ``id*4+flags``
+pool encoding), on the exact path and on the two-stage SQ8 path
+(``estimate="sq8"|"both"``).  Ids, every counter (``dist_calls``,
+``est_calls``, ``hops``, ``rerank_calls``, ``sq8_calls``) and ``iters`` must
+be equal; distances within rtol/atol 1e-5 (the port sums squared
+differences in the CUDA kernels' order, XLA in its own).
 """
 import jax
 import jax.numpy as jnp
@@ -27,10 +30,12 @@ from repro.data.vectors import make_dataset
 from repro_torch.core.index import AnnIndex as TIndex
 from repro_torch.core.search import _search_batch as t_search_batch
 from repro_torch.core.search import build_search_fn as t_build
+from repro_torch.core.search import ensure_sq8_arrays
 from repro_torch.core.search import graph_device_arrays as t_arrays
 from repro_torch.core.spec import SearchSpec as TSpec
 
-ENGINES = ["torch", "fused"]
+ENGINES = ["torch", "fused", "unfused"]
+COUNTERS = ("dist_calls", "est_calls", "hops", "rerank_calls", "sq8_calls")
 
 
 @pytest.fixture(scope="module")
@@ -49,7 +54,7 @@ def _assert_same(a, b, n_valid=None):
     np.testing.assert_array_equal(np.asarray(a.ids)[sl], b.ids.numpy()[sl])
     np.testing.assert_allclose(np.asarray(a.dists)[sl], b.dists.numpy()[sl],
                                rtol=1e-5, atol=1e-5)
-    for c in ("dist_calls", "est_calls", "hops"):
+    for c in COUNTERS:
         np.testing.assert_array_equal(np.asarray(getattr(a, c)),
                                       getattr(b, c).numpy(), err_msg=c)
     assert int(a.iters) == b.iters
@@ -90,33 +95,40 @@ def test_plain_beam_matches_jnp(tiny, engine):
 
 
 @pytest.mark.parametrize("engine", ENGINES)
-def test_valid_masked_padded_batch_matches_jnp(tiny, engine):
+@pytest.mark.parametrize("estimate", ["exact", "both"])
+def test_valid_masked_padded_batch_matches_jnp(tiny, engine, estimate):
     """A ragged batch padded to 8 lanes: padded lanes count 0 everywhere."""
     ds, j, t, ct = tiny
     q = ds.queries.copy()
     q[5:] = 0.0
     valid = np.arange(8) < 5
-    jcfg = JSpec(efs=24, router="crouting", beam_width=4, engine="jnp")
-    arrays = j_arrays(j.graph)
+    jcfg = JSpec(efs=24, router="crouting", beam_width=4, engine="jnp",
+                 estimate=estimate)
+    arrays = j_arrays(j.graph, with_sq8=estimate != "exact")
     a = jax.jit(lambda qq, cc, vv: j_search_batch(arrays, qq, cc, jcfg,
                                                   valid=vv))(
         jnp.asarray(q), jnp.asarray(ct, jnp.float32), jnp.asarray(valid))
-    b = t_search_batch(t_arrays(t.graph, "cpu"), torch.as_tensor(q), ct,
+    b = t_search_batch(ensure_sq8_arrays(t.graph, t_arrays(t.graph, "cpu")),
+                       torch.as_tensor(q), ct,
                        TSpec(efs=24, router="crouting", beam_width=4,
-                             engine=engine), valid=torch.as_tensor(valid))
+                             engine=engine, estimate=estimate),
+                       valid=torch.as_tensor(valid))
     _assert_same(a, b, n_valid=5)
-    for c in (b.dist_calls, b.est_calls, b.hops):
-        assert (c.numpy()[5:] == 0).all()
+    for c in COUNTERS:
+        assert (getattr(b, c).numpy()[5:] == 0).all(), c
 
 
 @pytest.mark.parametrize("engine", ENGINES)
-def test_tombstoned_search_matches_jnp(tiny, engine):
+@pytest.mark.parametrize("estimate", ["exact", "sq8"])
+def test_tombstoned_search_matches_jnp(tiny, engine, estimate):
+    """Dead ids are masked before the sq8 path's final rerank: they cost
+    no rerank and never come back."""
     ds, j, t, ct = tiny
     n = j.graph.n
     rng = np.random.default_rng(0)
     dead = np.zeros(n + 1, bool)
     dead[rng.choice(n, size=n // 8, replace=False)] = True
-    spec = dict(efs=24, router="crouting", beam_width=2)
+    spec = dict(efs=24, router="crouting", beam_width=2, estimate=estimate)
     _, jf = j_build(j.graph, JSpec(engine="jnp", **spec), tombstones=True)
     a = jf(jnp.asarray(ds.queries), jnp.asarray(ct, jnp.float32),
            jnp.asarray(dead))
@@ -139,3 +151,32 @@ def test_flat_knn_graph_matches_jnp(engine):
     a, b = _run_both(j, t, ds.queries, ct, engine, efs=32, router="crouting",
                      beam_width=4, use_hierarchy=False)
     _assert_same(a, b)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("router,estimate,W,efs", [
+    ("none", "sq8", 1, 24), ("crouting", "sq8", 4, 24),
+    ("crouting", "both", 4, 24), ("crouting", "both", 2, 16)])
+def test_two_stage_sq8_matches_jnp(tiny, router, estimate, W, efs, engine):
+    """The SQ8 estimate, the lower-bound skip, the approx pool flag and both
+    reranks reproduce the jnp engine's pools and counters."""
+    ds, j, t, ct = tiny
+    a, b = _run_both(j, t, ds.queries, ct, engine, efs=efs, router=router,
+                     estimate=estimate, beam_width=W)
+    _assert_same(a, b)
+    rr, sq = b.rerank_calls.numpy(), b.sq8_calls.numpy()
+    assert (rr > 0).all() and (sq > rr).all()
+    # a rerank is an exact distance call
+    assert (b.dist_calls.numpy() >= rr).all()
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("W", [1, 2])
+def test_exact_crouting_at_efs16_matches_jnp(tiny, engine, W):
+    """The unfused engine's own case in the JAX suite (four queries, efs
+    16): crouting_prune decides every prune, also under the W=2 rescue."""
+    ds, j, t, ct = tiny
+    a, b = _run_both(j, t, ds.queries[:4], ct, engine, efs=16,
+                     router="crouting", beam_width=W)
+    _assert_same(a, b)
+    assert int(b.est_calls.sum()) > 0 and int(b.sq8_calls.sum()) == 0
