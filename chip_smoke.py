@@ -5,7 +5,7 @@
 
 Phases, each printing one JSON line:
 
-1. ``build``   — compile the five CUDA kernels (src/repro_torch/csrc/*.cu)
+1. ``build``   — compile the six CUDA kernels (src/repro_torch/csrc/*.cu)
    with nvcc, one process per source started at once, into
    build/repro_torch/.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
@@ -18,7 +18,10 @@ Phases, each printing one JSON line:
    all-masked rows, out-of-range and negative ids, the pad row and constant
    dimensions), ``gather_distance`` (M in {4, 100, 128}, d in {128, 960,
    100}, with and without a skip mask) and ``crouting_prune`` (L in {128,
-   256}, inf edge lengths, bound2 = +inf and 0) must be bit-equal.
+   256}, inf edge lengths, bound2 = +inf and 0) must be bit-equal;
+   ``l2_distance`` (the reference sweep's four shapes plus [1, 1M, 128]
+   and [33, 257, 960], l2 and ip, fp32 and bf16 inputs) must agree with
+   its plain version within rtol 1e-4, atol 1e-4*d.
 3. ``hnsw``    — the main path with its hierarchy: make_dataset(50k x 128,
    64 clusters) -> AnnIndex.build(graph="hnsw", m=16, efc=64) -> search
    1024 queries in batches of 128 with every spec of ``SPECS`` on its
@@ -27,21 +30,35 @@ Phases, each printing one JSON line:
 4. ``knn_1m``  — the kernels at a deployment's state size: 1M x 128 (one
    Gaussian cloud) -> AnnIndex.build(graph="knn", k=32) on the card, the
    same searches.
-5. ``timing``  — each kernel, its plain version and its bound on inputs
+5. ``retrieval`` — the dlrm-mlperf retrieval path
+   (examples/dlrm_retrieval_torch.py): the DLRM serve step at full widths
+   (vocabulary capped at 4M rows a table) on ``serve_p99``; brute force at
+   ``retrieval_cand`` (1M unit-norm 128-d candidates, 1 and 32 queries)
+   through ``make_retrieval_step`` and the ``l2_distance`` kernel in ip
+   mode, whose top-100 must equal the step's up to ties; a CRouting-HNSW
+   index with ``metric="ip"`` (m=16, efc=96) over 50k candidates drawn as
+   the example draws them, searched at k=100, efs=200 with every spec of
+   ``IP_SPECS`` on its engines (recall@100 against brute force).
+6. ``timing``  — each kernel, its plain version and its bound on inputs
    captured from the knn_1m main path: fused_expand and pool_merge at W=4
    (the router hook decides the prunes) and W=1 (the kernel does),
    sq8_distance on the stage-1 tile and gather_distance on the in-loop
    [B, W] and final [B, efs] reranks of ``W4_both``, crouting_prune and
-   gather_distance on the unfused W=4 tile.
+   gather_distance on the unfused W=4 tile; l2_distance in ip mode at
+   [1, 1M, 128], [32, 1M, 128] and [8, 8192, 128] on the retrieval
+   phase's inputs, beside one ``torch.addmm`` call (cuBLAS fp32) that
+   computes the same function.
 
-For phases 3 and 4 each kernel engine must launch exactly the kernels its
-(engine, spec) runs (``expected_kernels``; every one at least once, no
-other), and must agree with the torch engine: identical ids and per-query
-counters (dist_calls, est_calls, hops, rerank_calls, sq8_calls) on >= 99%
-of queries, mean dist_calls within 0.5%, recall@10 within 0.005.  Any
-failed check raises and the script exits non-zero.  The last three lines
-are the kernel table (JSON), the card's name and power limit (nvidia-smi),
-and ``{"ok": true, "device": {...}}``.
+For phases 3, 4 and the index of 5 each kernel engine must launch exactly
+the kernels its (engine, spec) runs (``expected_kernels``; every one at
+least once, no other), and must agree with the torch engine: identical ids
+and per-query counters (dist_calls, est_calls, hops, rerank_calls,
+sq8_calls) on >= 99% of queries, mean dist_calls within 0.5%, recall
+within 0.005.  Each phase resets the kernels' launch counts just before
+it drives its path and reads them just after.  Any failed check raises
+and the script exits non-zero.  The last three lines are the kernel table
+(JSON), the card's name and power limit (nvidia-smi), and
+``{"ok": true, "device": {...}}``.
 
 fp32 throughout, with TF32 off for matmuls and cuDNN: the K-NN build and
 the ground truth are fp32 matrix products.
@@ -69,6 +86,14 @@ SPECS = {"W4": dict(k=10, efs=100, router="crouting", beam_width=4),
          "W1_sq8": dict(k=10, efs=100, router="none", estimate="sq8",
                         beam_width=1)}
 UNFUSED_SPECS = ("W4", "W4_both", "W1_sq8")
+# the retrieval example's spec (k=100, efs=2k) and its beam forms
+IP_SPECS = {"ip_W1": dict(k=100, efs=200, router="crouting"),
+            "ip_W4": dict(k=100, efs=200, router="crouting", beam_width=4),
+            "ip_W4_both": dict(k=100, efs=200, router="crouting",
+                               beam_width=4, estimate="both"),
+            # no pruning: what the graph itself reaches at this efs
+            "ip_W4_none": dict(k=100, efs=200, router="none", beam_width=4)}
+IP_UNFUSED_SPECS = ("ip_W4", "ip_W4_both")
 COUNTERS = ("dist_calls", "est_calls", "hops", "rerank_calls", "sq8_calls")
 BATCH = 128
 
@@ -355,6 +380,48 @@ def check_crouting_prune(rng, dev):
     return rows
 
 
+# the reference sweep (tests/test_kernels.py) plus retrieval_cand and GIST's d
+L2_SHAPES = ((8, 16, 32), (70, 130, 96), (128, 256, 128), (33, 257, 200),
+             (1, 1_000_000, 128), (33, 257, 960))
+
+
+def l2_errors(got, exp, d):
+    """Max abs error and the worst ratio of |got - exp| to the tolerance
+    atol + rtol*|exp| (rtol 1e-4, atol 1e-4*d: the reference sweep's fp32
+    tolerance; in l2 mode the error scales with |q|^2 + |x|^2, not with
+    the output)."""
+    err = (got - exp).abs()
+    ratio = err / (1e-4 * d + 1e-4 * exp.abs())
+    return float(err.max()), float(ratio.max())
+
+
+def check_l2_distance(dev):
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.l2_distance import l2_distance_cuda
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for Q, C, d in L2_SHAPES:
+        q32 = torch.randn((Q, d), generator=gen, device=dev)
+        x32 = torch.randn((C, d), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, x = q32.to(dtype), x32.to(dtype)
+            for mode in ("l2", "ip"):
+                got = l2_distance_cuda(q, x, mode)
+                exp = ref.l2_distance_ref(q, x, mode)
+                torch.cuda.synchronize()
+                err, ratio = l2_errors(got, exp, d)
+                check(got.shape == exp.shape and ratio <= 1.0,
+                      f"l2_distance Q={Q} C={C} d={d} {dtype} {mode}: max "
+                      f"abs err {err} beyond rtol 1e-4, atol 1e-4*d")
+                rows.append({"Q": Q, "C": C, "d": d, "dtype": str(dtype),
+                             "mode": mode, "max_abs_err": err,
+                             "err_over_tol": ratio,
+                             "ms": cuda_times(
+                                 lambda: l2_distance_cuda(q, x, mode), 20)})
+    return rows
+
+
 # --- phases 3 and 4: the main path on both engines ---------------------------
 def run_engine(idx, queries, spec):
     import numpy as np
@@ -384,7 +451,7 @@ def expected_kernels(engine, kw):
     sq8_distance and gather_distance (the reranks) instead; the unfused
     engine adds gather_distance on the exact path and crouting_prune where
     the router prunes; every kernel engine merges with pool_merge.  The
-    torch engine launches none."""
+    torch engine launches none, and no search launches l2_distance."""
     if engine == "torch":
         return set()
     sq8 = kw.get("estimate", "exact") in ("sq8", "both")
@@ -400,21 +467,26 @@ def expected_kernels(engine, kw):
     return want
 
 
-def compare_engines(phase, name, kw, runs, gt, nq, main_launches):
+def compare_engines(phase, name, kw, runs, gt, nq, main_launches, k=10,
+                    n_base=None):
     """Check each kernel engine's run against the torch engine's and its
-    launches against ``expected_kernels``; emit one line per spec."""
+    launches against ``expected_kernels``; emit one line per spec (with
+    dist_calls a query as a share of ``n_base`` where given)."""
     import numpy as np
     from repro_torch.data.vectors import recall_at_k
     out = {"phase": phase, "spec": name}
     plain = runs["torch"]
+    rk = f"recall@{k}"
     for eng, r in runs.items():
         st = r["stats"]
         row = {"qps": nq / r["secs"], "secs": r["secs"],
-               "recall@10": recall_at_k(r["ids"], gt, 10),
+               rk: recall_at_k(r["ids"], gt, k),
                "iters_per_batch": float(np.mean(r["iters"])),
                "launches": r["launches"],
                "max_memory_allocated": r["max_memory_allocated"]}
         row.update({c: float(np.mean(getattr(st, c))) for c in COUNTERS})
+        if n_base:
+            row["dist_call_share"] = row["dist_calls"] / n_base
         if eng != "torch":
             same = np.all(r["ids"] == plain["ids"], axis=1)
             for c in COUNTERS:
@@ -439,33 +511,189 @@ def compare_engines(phase, name, kw, runs, gt, nq, main_launches):
             ref["dist_calls"], 1e-9)
         check(rel <= 0.005, f"{phase}/{name}: {eng} mean dist_calls differ "
               f"by {rel:.4%}")
-        check(abs(row["recall@10"] - ref["recall@10"]) <= 0.005,
-              f"{phase}/{name}: {eng} recall {row['recall@10']} vs torch "
-              f"{ref['recall@10']}")
+        check(abs(row[rk] - ref[rk]) <= 0.005,
+              f"{phase}/{name}: {eng} recall {row[rk]} vs torch {ref[rk]}")
 
 
-def search_phase(phase, idx, ds, gt, main_launches, captures=None):
-    """Every spec of ``SPECS`` on its engines; ``captures`` maps (spec,
+def search_phase(phase, idx, queries, gt, main_launches, captures=None,
+                 specs=SPECS, unfused_specs=UNFUSED_SPECS, k=10):
+    """Every spec of ``specs`` on its engines; ``captures`` maps (spec,
     engine) to a CaptureInputs run around that search."""
     import contextlib
     import dataclasses
     from repro_torch.core.search import build_search_fn
     from repro_torch.core.spec import SearchSpec
-    for name, kw in SPECS.items():
-        engines = ["fused"] + (["unfused"] if name in UNFUSED_SPECS else [])
+    for name, kw in specs.items():
+        engines = ["fused"] + (["unfused"] if name in unfused_specs else [])
         runs = {}
         for engine in engines + ["torch"]:
             spec = SearchSpec(engine=engine, **kw)
             # copy the graph (and its SQ8 tables) to the card before the
-            # clock starts
+            # clock starts, under the spec AnnIndex.search will resolve
             build_search_fn(idx.graph, dataclasses.replace(
-                spec, use_hierarchy=idx.graph.upper_neighbors is not None),
+                spec, efs=max(spec.efs, spec.k), metric=idx.graph.metric,
+                use_hierarchy=idx.graph.upper_neighbors is not None),
                 device=idx.device)
             capture = (captures or {}).get((name, engine))
             with capture if capture is not None else contextlib.nullcontext():
-                runs[engine] = run_engine(idx, ds.queries, spec)
-        compare_engines(phase, name, kw, runs, gt, len(ds.queries),
-                        main_launches)
+                runs[engine] = run_engine(idx, queries, spec)
+        compare_engines(phase, name, kw, runs, gt, len(queries),
+                        main_launches, k=k, n_base=idx.graph.n)
+
+
+# --- phase 5: the dlrm-mlperf retrieval path ---------------------------------
+VOCAB_CAP = 4_000_000     # 24.07M table rows, 12.3 GB fp32 (full: 96 GB)
+# the example's n_cand is 100k; on the H100 machine's host its index took
+# 657 s to build and the whole script 994 s, so the index is cut to 50k
+ANN_CANDIDATES = 50_000
+ANN_QUERIES = 1024
+
+
+def serve_check(dev):
+    """The DLRM serve step at full widths on ``serve_p99``; 16 rows held
+    against the same function on the CPU with the table rows they touch
+    copied over (ids remapped), rtol 1e-4."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import dlrm as M
+    arch = get_arch("dlrm-mlperf")
+    cfg = dataclasses.replace(arch.model_cfg, vocab_cap=VOCAB_CAP)
+    B = arch.shape("serve_p99").dims["batch"]
+    t0 = time.perf_counter()
+    params = M.init_dlrm(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    torch.cuda.synchronize()
+    init_secs = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    dense = rng.normal(size=(B, cfg.n_dense)).astype(np.float32)
+    vocab = [min(v, cfg.vocab_cap) for v in cfg.vocab_sizes]
+    sparse = np.stack([rng.integers(0, v, size=B) for v in vocab], axis=1)
+    batch = {"dense": torch.as_tensor(dense, device=dev),
+             "sparse_ids": torch.as_tensor(sparse, device=dev)}
+    serve = M.make_dlrm_serve_step(cfg)
+    scores = serve(params, batch)
+    torch.cuda.synchronize()
+    check(scores.shape == (B,) and bool(torch.isfinite(scores).all())
+          and bool(((scores > 0) & (scores < 1)).all()),
+          "retrieval/serve: scores not finite in (0, 1)")
+    n = 16
+    cols = [np.unique(sparse[:n, i], return_inverse=True)
+            for i in range(cfg.n_sparse)]
+    cpu_params = {
+        "tables": [t[torch.as_tensor(u, device=dev)].cpu()
+                   for t, (u, _) in zip(params["tables"], cols)],
+        **{k: [{kk: v.cpu() for kk, v in layer.items()}
+               for layer in params[k]] for k in ("bot", "top")}}
+    cpu_scores = serve(cpu_params, {
+        "dense": torch.as_tensor(dense[:n]),
+        "sparse_ids": torch.as_tensor(np.stack([inv for _, inv in cols],
+                                               axis=1))})
+    err = float((scores[:n].cpu() - cpu_scores).abs().max())
+    check(torch.allclose(scores[:n].cpu(), cpu_scores, rtol=1e-4, atol=0.0),
+          f"retrieval/serve: 16 rows differ from the CPU by up to {err}")
+    row = {"batch": B, "table_rows": sum(cfg.table_rows()),
+           "table_gb": sum(cfg.table_rows()) * cfg.embed_dim * 4 / 1e9,
+           "param_count": cfg.param_count(), "init_secs": init_secs,
+           "score_mean": float(scores.mean()), "cpu_max_abs_err": err,
+           "serve_ms": cuda_times(lambda: serve(params, batch), 20),
+           "cuts": f"vocab_cap {VOCAB_CAP} a table (187.8M rows, 96 GB at "
+                   "the full Criteo vocabulary do not fit one 80 GB card)"}
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def topk_agrees(ker_ids, ref_ids, ref_scores, q, cands, tol=1e-6):
+    """Each row's top-k id set from the kernel equals the retrieval step's,
+    except for ids whose exact (float64) score is within ``tol`` of the
+    step's k-th score (ties).  Returns (ids swapped, worst gap)."""
+    swapped, worst = 0, 0.0
+    for r in range(ker_ids.shape[0]):
+        diff = sorted(set(ker_ids[r].tolist()) ^ set(ref_ids[r].tolist()))
+        if diff:
+            s = cands[diff].double() @ q[r].double()
+            worst = max(worst, float((s - ref_scores[r, -1].double())
+                                     .abs().max()))
+            swapped += len(diff)
+    check(worst <= tol, f"retrieval: kernel top-k differs from the retrieval "
+          f"step beyond ties (score gap {worst})")
+    return swapped, worst
+
+
+def unit_rows_on(dev, gen, n, d=128):
+    import torch
+    x = torch.randn((n, d), generator=gen, device=dev)
+    return x / torch.linalg.norm(x, dim=1, keepdim=True)
+
+
+def retrieval_phase(dev, main_launches):
+    """Serve, brute force and the ip index of the retrieval path; returns
+    the brute-force inputs for the timing phase."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.kernels import ops
+    from repro_torch.models import dlrm as M
+    arch = get_arch("dlrm-mlperf")
+    n_cand = arch.shape("retrieval_cand").dims["n_candidates"]
+    k = 100
+    step = M.make_retrieval_step(arch.model_cfg, k=k)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    cands = unit_rows_on(dev, gen, n_cand)                 # 512 MB
+    queries = unit_rows_on(dev, gen, 32)
+
+    # the path: serve, brute force at retrieval_cand (1 query, the
+    # example's 32), and the example's 8 x 8192 block
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    serve = serve_check(dev)
+    brute = []
+    for nq in (1, 32):
+        q = queries[:nq]
+        ref_scores, ref_ids = step(q, cands)
+        _, ker_ids = torch.topk(ops.l2_distance(q, cands, mode="ip"), k,
+                                dim=1, largest=False)
+        swapped, gap = topk_agrees(ker_ids.cpu(), ref_ids.cpu(), ref_scores,
+                                   q, cands)
+        brute.append({"queries": nq, "candidates": n_cand, "k": k,
+                      "ids_swapped_by_ties": swapped, "worst_tie_gap": gap})
+    block = ops.l2_distance(queries[:8], cands[:8192], mode="ip")
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    check(launches["l2_distance"] > 0 and
+          {n for n, v in launches.items() if v} == {"l2_distance"},
+          f"retrieval: the path launched {launches}")
+    main_launches["l2_distance"] = (main_launches.get("l2_distance", 0)
+                                    + launches["l2_distance"])
+    emit({"phase": "retrieval", "part": "serve_and_brute_force",
+          "serve_p99": serve, "brute_force": brute,
+          "block": list(block.shape), "launches": launches})
+
+    # the example's index: metric="ip", HNSW m=16, efc=96
+    rng = np.random.default_rng(0)
+    base = rng.normal(size=(ANN_CANDIDATES, 128)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    qs = rng.normal(size=(ANN_QUERIES, 128)).astype(np.float32)
+    qs /= np.linalg.norm(qs, axis=1, keepdims=True)
+    t0 = time.perf_counter()
+    idx = AnnIndex.build(base, graph="hnsw", metric="ip", m=16, efc=96,
+                         device=dev)
+    build_secs = time.perf_counter() - t0
+    _, gt = step(torch.as_tensor(qs, device=dev),
+                 torch.as_tensor(base, device=dev))
+    emit({"phase": "retrieval", "part": "ann_index", "n": ANN_CANDIDATES,
+          "dim": 128, "metric": "ip", "m": 16, "efc": 96,
+          "build_secs": build_secs,
+          "levels": idx.graph.build_stats["levels"],
+          "theta_star": idx.profile.theta_star, "queries": ANN_QUERIES,
+          "cuts": "n 100k (the example) -> 50k, and not retrieval_cand's "
+                  "1M: the host HNSW builder"})
+    search_phase("retrieval", idx, qs, gt.cpu().numpy(), main_launches,
+                 specs=IP_SPECS, unfused_specs=IP_UNFUSED_SPECS, k=k)
+    return cands, queries, idx, qs
 
 
 WRAPPERS = ("fused_expand", "pool_merge", "sq8_estimate",
@@ -525,7 +753,8 @@ KERNEL_FILES = {
     "pool_merge": "src/repro/kernels/pool_merge.py:95",
     "sq8_distance": "src/repro/kernels/sq8_distance.py:87",
     "gather_distance": "src/repro/kernels/gather_distance.py:53",
-    "crouting_prune": "src/repro/kernels/crouting_prune.py:54"}
+    "crouting_prune": "src/repro/kernels/crouting_prune.py:54",
+    "l2_distance": "src/repro/kernels/l2_distance.py:65"}
 NO_LIBRARY_CALL = {
     "fused_expand": "no single PyTorch call: a row gather under a computed "
                     "prune mask, then a distance",
@@ -539,10 +768,12 @@ NO_LIBRARY_CALL = {
                       "a comparison are several ops"}
 
 
-def timed_row(name, kernel, plain, nbytes, flops, err, shape, flush=None):
-    """One kernel-table row: the kernel's and the plain version's median
-    time and the bound (the larger of bytes over HBM rate and flops over
-    the fp32 rate), on the same inputs."""
+def timed_row(name, kernel, plain, nbytes, flops, err, shape, flush=None,
+              library=None, library_note=None):
+    """One kernel-table row: the kernel's, the plain version's and (where
+    one PyTorch call computes the same function) that call's median time,
+    and the bound (the larger of bytes over HBM rate and flops over the
+    fp32 rate), on the same inputs."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS * 1e3
     return {"name": name, "route": "cuda",
@@ -552,7 +783,9 @@ def timed_row(name, kernel, plain, nbytes, flops, err, shape, flush=None):
             "plain_ms": cuda_times(plain, 50, flush),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "library_note": NO_LIBRARY_CALL[name],
+            "library_ms": (None if library is None
+                           else cuda_times(library, 200, flush)),
+            "library_note": library_note or NO_LIBRARY_CALL[name],
             "shape": shape}
 
 
@@ -665,9 +898,35 @@ def time_crouting_prune(capture):
                      {"B": B, "L": L, "pruned_lanes": int(kp.sum())})
 
 
-def timing_phase(captures, main_launches):
+def time_l2_distance(q, x, flush=None):
+    """l2_distance in ip mode (the retrieval path's mode) beside
+    ``torch.addmm(1, q, x^T, alpha=-1)``: cuBLAS fp32 with TF32 off, one
+    PyTorch call computing the same function, which the port never calls."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.l2_distance import l2_distance_cuda
+    Q, d = q.shape
+    C = x.shape[0]
+    one = torch.ones((1, 1), device=q.device)
+    got = l2_distance_cuda(q, x, "ip")
+    exp = ref.l2_distance_ref(q, x, "ip")
+    lib = torch.addmm(one, q, x.T, alpha=-1)
+    err, ratio = l2_errors(got, exp, d)
+    check(ratio <= 1.0 and l2_errors(lib, exp, d)[1] <= 1.0,
+          f"timing: l2_distance [{Q}, {C}, {d}] disagrees (err {err})")
+    return timed_row("l2_distance", lambda: l2_distance_cuda(q, x, "ip"),
+                     lambda: ref.l2_distance_ref(q, x, "ip"),
+                     4 * (Q * d + C * d + Q * C), 2 * Q * C * d, err,
+                     {"Q": Q, "C": C, "d": d, "mode": "ip"}, flush,
+                     library=lambda: torch.addmm(one, q, x.T, alpha=-1),
+                     library_note="torch.addmm(ones, q, x.T, alpha=-1), "
+                                  "cuBLAS fp32, TF32 off")
+
+
+def timing_phase(captures, main_launches, cands, queries):
     """Each kernel against its plain version and its bound on inputs
-    captured from the knn_1m main path.  Returns the kernel table: one row
+    captured from the knn_1m main path (l2_distance on the retrieval
+    phase's candidates and queries).  Returns the kernel table: one row
     per kernel (its first timing), with the other timings under
     ``other_shapes`` and the main path's launch count."""
     import torch
@@ -689,13 +948,18 @@ def timing_phase(captures, main_launches):
             time_gather_distance(both, W, flush, "in-loop rerank [B, W]"),
             time_gather_distance(both, efs, flush, "final rerank [B, efs]"),
             time_gather_distance(unf, L, flush, "unfused exact [B, W*M]")],
-        "crouting_prune": [time_crouting_prune(unf)]}
+        "crouting_prune": [time_crouting_prune(unf)],
+        # 512 MB of candidates exceed the L2; the 4 MB block is flushed
+        "l2_distance": [time_l2_distance(queries[:1], cands),
+                        time_l2_distance(queries, cands),
+                        time_l2_distance(queries[:8], cands[:8192], flush)]}
     emit({"phase": "timing", "kernels": rows})
     table = []
     for name, rs in rows.items():
         row = dict(rs[0], launches=main_launches[name])
         row["other_shapes"] = [
-            {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
+            {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                               "library_ms")}
             for r in rs[1:]]
         table.append(row)
     return table
@@ -771,7 +1035,8 @@ def main() -> int:
           "pool_merge": check_pool_merge(rng, dev),
           "sq8_distance": check_sq8_distance(rng, dev),
           "gather_distance": check_gather_distance(rng, dev),
-          "crouting_prune": check_crouting_prune(rng, dev)})
+          "crouting_prune": check_crouting_prune(rng, dev),
+          "l2_distance": check_l2_distance(dev)})
 
     main_launches = {}
     # 3. hnsw: the main path with its hierarchy, at a reduced n
@@ -786,7 +1051,7 @@ def main() -> int:
           "levels": idx.graph.build_stats["levels"],
           "theta_star": idx.profile.theta_star,
           "cuts": "n 1M->50k, m 32->16, efc 256->64 (host HNSW builder)"})
-    search_phase("hnsw", idx, ds, gt, main_launches)
+    search_phase("hnsw", idx, ds.queries, gt, main_launches)
     hnsw_prof = profile_batch(idx, ds.queries, SearchSpec(**SPECS["W4"]))
     del idx, ds
 
@@ -813,17 +1078,25 @@ def main() -> int:
     captures = {key: CaptureInputs() for key in (
         ("W4", "fused"), ("W1", "fused"), ("W4_both", "fused"),
         ("W4", "unfused"))}
-    search_phase("knn_1m", idx, ds, gt, main_launches, captures=captures)
-    emit({"phase": "profile", "hnsw_W4_fused": hnsw_prof,
-          "knn_1m_W4_fused": profile_batch(idx, ds.queries,
-                                           SearchSpec(**SPECS["W4"])),
-          "knn_1m_W4_both_fused": profile_batch(
-              idx, ds.queries, SearchSpec(**SPECS["W4_both"])),
-          "knn_1m_W4_unfused": profile_batch(
-              idx, ds.queries, SearchSpec(engine="unfused", **SPECS["W4"]))})
+    search_phase("knn_1m", idx, ds.queries, gt, main_launches,
+                 captures=captures)
+    profiles = {
+        "hnsw_W4_fused": hnsw_prof,
+        "knn_1m_W4_fused": profile_batch(idx, ds.queries,
+                                         SearchSpec(**SPECS["W4"])),
+        "knn_1m_W4_both_fused": profile_batch(
+            idx, ds.queries, SearchSpec(**SPECS["W4_both"])),
+        "knn_1m_W4_unfused": profile_batch(
+            idx, ds.queries, SearchSpec(engine="unfused", **SPECS["W4"]))}
 
-    # 5. kernels on captured main-path inputs
-    kernels = timing_phase(captures, main_launches)
+    # 5. the dlrm-mlperf retrieval path
+    cands, queries, ip_idx, ip_queries = retrieval_phase(dev, main_launches)
+    profiles["retrieval_ip_W4_fused"] = profile_batch(
+        ip_idx, ip_queries, SearchSpec(**IP_SPECS["ip_W4"]))
+    emit({"phase": "profile", **profiles})
+
+    # 6. kernels on captured main-path inputs
+    kernels = timing_phase(captures, main_launches, cands, queries)
     emit({"phase": "done", "secs": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}))
     print(smi)

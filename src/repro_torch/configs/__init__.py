@@ -1,0 +1,55 @@
+"""Architecture registry of the port: ``get_arch(id)`` / ``list_archs()``.
+
+The counterpart of ``repro.configs``, copied and cut to what the port runs:
+the dlrm-mlperf recsys model and the paper's own ANNS serving config.  Each
+module defines SPEC (an ArchSpec).
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Any, Dict, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    shape_id: str
+    step: str                 # train | serve | retrieval | anns_serve
+    dims: Dict[str, int]
+    notes: str = ""
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    family: str               # recsys | anns
+    model_cfg: Any
+    shapes: Tuple[ShapeSpec, ...]
+    source: str = ""          # provenance [arXiv / hf]
+    smoke_cfg: Optional[Any] = None   # reduced config for CPU smoke tests
+
+    def shape(self, shape_id: str) -> ShapeSpec:
+        for s in self.shapes:
+            if s.shape_id == shape_id:
+                return s
+        raise KeyError(f"{self.arch_id}: unknown shape {shape_id!r}")
+
+
+_MODULES = {
+    "dlrm-mlperf": "dlrm_mlperf",
+    "crouting-anns": "crouting_paper",
+}
+
+_CACHE: Dict[str, ArchSpec] = {}
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id not in _CACHE:
+        mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
+        _CACHE[arch_id] = mod.SPEC
+    return _CACHE[arch_id]
+
+
+def list_archs(include_anns: bool = False):
+    ids = [a for a in _MODULES if a != "crouting-anns"]
+    return ids + (["crouting-anns"] if include_anns else [])

@@ -53,7 +53,13 @@ Translation notes against the JAX engine:
   the ``fused_expand`` and ``gather_distance`` kernels' order, and the
   stage-1 estimate ``repro_torch.quant.sq8.sq8_estimate`` sums in the
   ``sq8_distance`` kernel's order, so every engine sees bit-equal distances
-  on the card.
+  on the card;
+* under ``ip``/``cosine`` the hop loop's exact ranks are
+  ``(|q - x|^2 - |q|^2 - |x|^2 + 2) / 2`` on every engine, the form the
+  kernel engines derive from the kernels' squared L2 (the JAX ``jnp``
+  engine computes ``1 - <q, x>``, which differs by ulps and, at k = 100,
+  reordered near-tied results between the engines); the hierarchy descent
+  and the entry point keep ``1 - <q, x>`` on every engine.
 
 Pad-row sentinel: ``graph_device_arrays`` appends one zero vector at row N;
 adjacency pad slots point at it, and pool slots holding no candidate carry
@@ -294,9 +300,9 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         idx = torch.where(mask, ids, n)
         if kernels:
             eu2 = ops.gather_distance_pruned(idx, ~mask, queries, vecs)
-            r = _eu2_to_rank(eu2, nq[:, None], norms[idx.long()], metric)
         else:
-            r = _rank_tile(queries, vecs[idx.long()], metric)
+            eu2 = l2sq_rows(queries, vecs[idx.long()])
+        r = _eu2_to_rank(eu2, nq[:, None], norms[idx.long()], metric)
         return torch.where(mask, r, inf)
 
     if cfg.use_hierarchy:
@@ -467,14 +473,12 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
                     # the kernel made the prune decision and skipped those rows
                     prune = prune8 != 0
                     compute = compute & ~prune
-                exact = _eu2_to_rank(d2eu, nq[:, None], nx, metric)
             elif engine == "unfused":
                 d2eu = ops.gather_distance_pruned(
                     torch.where(compute, nbrs, n), ~compute, queries, vecs)
-                exact = _eu2_to_rank(d2eu, nq[:, None], nx, metric)
             else:
-                exact = _rank_tile(queries, vecs[torch.where(compute, nbl, n)],
-                                   metric)
+                d2eu = l2sq_rows(queries, vecs[torch.where(compute, nbl, n)])
+            exact = _eu2_to_rank(d2eu, nq[:, None], nx, metric)
             insert = compute
             new_d = torch.where(compute, exact, inf)
             dcalls = dcalls + compute.sum(1, dtype=_I32)

@@ -23,7 +23,7 @@ from repro_torch.kernels import ref
 
 LAUNCHES: Dict[str, int] = {"fused_expand": 0, "pool_merge": 0,
                             "sq8_distance": 0, "gather_distance": 0,
-                            "crouting_prune": 0}
+                            "crouting_prune": 0, "l2_distance": 0}
 
 
 def reset_launch_counts() -> None:
@@ -192,3 +192,23 @@ def crouting_prune(ed, dcq, bound2, valid, cos_theta):
         LAUNCHES["crouting_prune"] += 1
         return out
     return ref.crouting_prune_ref(*args)
+
+
+def l2_distance(q, x, mode: str = "l2"):
+    """Distance matrix [Q, C] f32 between q [Q, d] and x [C, d]: squared L2
+    (``mode="l2"``) or the inner-product distance ``1 - <q, x>``
+    (``mode="ip"``).  Takes any Q, C and d, and fp32 or bf16 inputs (bf16
+    is upcast on load; mixed types are taken as fp32).  Unlike
+    ``repro.kernels.ops.l2_distance`` it pads nothing and takes no block
+    sizes: the CUDA kernel masks its own ragged edges and owns its tile."""
+    if mode not in ("l2", "ip"):
+        raise ValueError(f"l2_distance: mode must be 'l2' or 'ip', got {mode!r}")
+    dt = (torch.bfloat16 if q.dtype == x.dtype == torch.bfloat16
+          else torch.float32)
+    q, x = q.to(dt).contiguous(), x.to(dt).contiguous()
+    if q.is_cuda:
+        from repro_torch.kernels.l2_distance import l2_distance_cuda
+        out = l2_distance_cuda(q, x, mode)
+        LAUNCHES["l2_distance"] += 1
+        return out
+    return ref.l2_distance_ref(q, x, mode)

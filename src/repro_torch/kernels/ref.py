@@ -71,6 +71,19 @@ def edge_angle_est2(ed, dcq, cos_theta: float) -> torch.Tensor:
     return torch.where(est2 < 0, torch.zeros_like(est2), est2)
 
 
+def l2_distance_ref(q, x, mode: str = "l2"):
+    """The distance matrix [Q, C] f32 of q [Q, d] against x [C, d] (f32 or
+    bf16, upcast to f32): ``max(|q|^2 + |x|^2 - 2 q.x^T, 0)`` in l2 mode,
+    ``1 - q.x^T`` in ip mode (NaN propagates, as in ``jnp.maximum``)."""
+    q = q.to(torch.float32)
+    x = x.to(torch.float32)
+    if mode == "l2":
+        qn = torch.sum(q * q, dim=-1, keepdim=True)
+        xn = torch.sum(x * x, dim=-1)
+        return torch.clamp_min(qn + xn[None, :] - 2.0 * q @ x.T, 0.0)
+    return 1.0 - q @ x.T
+
+
 def crouting_prune_ref(ed, dcq, bound2, valid, cos_theta):
     """dcq/bound2: [B] (broadcast) or per-lane [B, M] (beam tiles)."""
     ed = ed.to(torch.float32)

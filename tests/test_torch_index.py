@@ -163,16 +163,24 @@ for m in mods:
     importlib.import_module(m)
 new = ["repro_torch.quant.sq8", "repro_torch.kernels.sq8_distance",
        "repro_torch.kernels.gather_distance",
-       "repro_torch.kernels.crouting_prune"]
+       "repro_torch.kernels.crouting_prune", "repro_torch.kernels.l2_distance",
+       "repro_torch.models.dlrm", "repro_torch.configs",
+       "repro_torch.configs.dlrm_mlperf", "repro_torch.configs.shapes",
+       "repro_torch.configs.crouting_paper"]
 assert all(m in mods for m in new), (new, mods)
 import chip_smoke
+import importlib.util
+spec = importlib.util.spec_from_file_location(
+    "dlrm_retrieval_torch", {example!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "repro"
        or m.startswith("repro.")]
 assert not bad, bad
 assert len(mods) >= 20, mods
 print("ok", len(mods))
-""".format(repo=REPO)
+""".format(repo=REPO, example=os.path.join(REPO, "examples",
+                                           "dlrm_retrieval_torch.py"))
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=REPO, timeout=120)

@@ -187,9 +187,10 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     ops.gather_distance(t(nbrs), t(q), t(table))
     ops.gather_distance_pruned(t(nbrs), t(ev), t(q), t(table))
     ops.crouting_prune(t(ed), t(dcq), t(b2), t(el), 0.1)
+    ops.l2_distance(t(q), t(table), mode="ip")
     assert ops.LAUNCHES == {"fused_expand": 0, "pool_merge": 0,
                             "sq8_distance": 0, "gather_distance": 0,
-                            "crouting_prune": 0}
+                            "crouting_prune": 0, "l2_distance": 0}
 
 
 def test_build_compiles_nothing_on_import_and_needs_nvcc(monkeypatch):

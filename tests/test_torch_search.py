@@ -180,3 +180,75 @@ def test_exact_crouting_at_efs16_matches_jnp(tiny, engine, W):
                      router="crouting", beam_width=W)
     _assert_same(a, b)
     assert int(b.est_calls.sum()) > 0 and int(b.sq8_calls.sum()) == 0
+
+
+# --- the inner-product index (the dlrm-mlperf retrieval path) ----------------
+@pytest.fixture(scope="module", params=["ip", "cosine"])
+def unit_index(request):
+    """An HNSW over 700 unit vectors built by the JAX package under a
+    non-L2 metric, as both indexes: the prune bound moves into rank space
+    (``repro_torch.core.search``, ``bound2`` under ``metric != "l2"``)."""
+    rng = np.random.default_rng(11)
+    base = rng.normal(size=(700, 16)).astype(np.float32)
+    base /= np.linalg.norm(base, axis=1, keepdims=True)
+    q = rng.normal(size=(6, 16)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    j = JIndex.build(base, graph="hnsw", metric=request.param, m=8, efc=32)
+    t = TIndex.from_payload(j._payload(), device="cpu")
+    assert t.graph.metric == request.param
+    return q, j, t, j.profile.cos_theta_star, {}
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("W,estimate", [(1, "exact"), (4, "exact"),
+                                        (4, "both")])
+def test_inner_product_index_matches_jnp(unit_index, engine, W, estimate):
+    """k=100, efs=200 (the retrieval example's spec) at W=1, W=4 and W=4
+    with the two stages: ids, every counter and iters equal on all three
+    engines."""
+    q, j, t, ct, cache = unit_index
+    spec = dict(k=100, efs=200, router="crouting", beam_width=W,
+                estimate=estimate, metric=t.graph.metric)
+    if (W, estimate) not in cache:       # one jnp run per spec
+        _, jf = j_build(j.graph, JSpec(engine="jnp", **spec))
+        cache[W, estimate] = jf(jnp.asarray(q), jnp.asarray(ct, jnp.float32))
+    _, tf = t_build(t.graph, TSpec(engine=engine, **spec), device="cpu")
+    b = tf(q, ct)
+    _assert_same(cache[W, estimate], b)
+    assert int(b.est_calls.sum()) > 0
+    assert (b.dist_calls.numpy() < t.graph.n).all()
+
+
+def test_dlrm_retrieval_example_runs_on_the_cpu():
+    """examples/dlrm_retrieval_torch.py end to end at a small n_cand."""
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "examples", "dlrm_retrieval_torch.py")
+    spec = importlib.util.spec_from_file_location("dlrm_retrieval_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = mod.main(["--device", "cpu", "--n-cand", "1500", "--n-query", "8"])
+    assert out["recall"] >= 0.9
+    assert 0 < out["dist_call_share"] < 1
+    assert out["block_shape"] == (8, 1500)
+
+
+@pytest.mark.parametrize("W,estimate", [(1, "exact"), (4, "exact"),
+                                        (4, "both")])
+def test_inner_product_engines_are_bit_equal(unit_index, W, estimate):
+    """Under ip/cosine every engine ranks the hop loop's exact distances in
+    one arithmetic (the kernels' squared L2 moved to rank space), so the
+    plain engine's distances equal the kernel engines' bit for bit: a
+    different formula (``1 - <q, x>``) reorders near-tied results."""
+    q, _, t, ct, _ = unit_index
+    spec = dict(k=100, efs=200, router="crouting", beam_width=W,
+                estimate=estimate, metric=t.graph.metric)
+    out = {e: t_build(t.graph, TSpec(engine=e, **spec), device="cpu")[1](
+        q, ct) for e in ENGINES}
+    for e in ("fused", "unfused"):
+        assert torch.equal(out[e].ids, out["torch"].ids)
+        assert torch.equal(out[e].dists, out["torch"].dists)
+        for c in COUNTERS:
+            assert torch.equal(getattr(out[e], c), getattr(out["torch"], c))
