@@ -12,16 +12,19 @@ Phases, each printing one JSON line:
    card (B=128): ``fused_expand`` (L in {128, 256}, d in {128, 960, 100},
    with all-pruned and all-masked rows, out-of-range ids, the pad row and
    bound2=+inf) must give a bit-equal prune mask, the same +inf pattern and
-   distances within rtol 1e-5; ``pool_merge`` (P in {64, 100}, L in
-   {128, 256}, exact ties, +inf/pad sentinels, id*4+flags payloads) must be
-   bit-exact; ``sq8_distance`` (L in {128, 256}, d in {128, 960, 100}, with
-   all-masked rows, out-of-range and negative ids, the pad row and constant
+   distances within rtol 1e-5; ``pool_merge`` (P in {64, 100, 200} x L in
+   {32, 128, 256} on the warp variant and P + L up to 4000 on the block
+   variant, sorted and shuffled pools, exact ties, +inf/pad sentinels,
+   id*4+flags payloads) must be bit-exact; ``sq8_distance`` (L in {128,
+   256}, d in {128, 960, 100}, with all-masked rows, out-of-range and negative ids, the pad row and constant
    dimensions), ``gather_distance`` (M in {4, 100, 128}, d in {128, 960,
    100}, with and without a skip mask) and ``crouting_prune`` (L in {128,
    256}, inf edge lengths, bound2 = +inf and 0) must be bit-equal;
    ``l2_distance`` (the reference sweep's four shapes plus [1, 1M, 128]
-   and [33, 257, 960], l2 and ip, fp32 and bf16 inputs) must agree with
-   its plain version within rtol 1e-4, atol 1e-4*d.
+   and [33, 257, 960], Q in {1, 2, Qs, Qs + 1} and C on both sides of the
+   streaming/tiled split, d in {33, 100, 960}, an offset view x[3:] and a
+   base off 16-byte alignment; l2 and ip, fp32 and bf16 inputs) must agree
+   with its plain version within rtol 1e-4, atol 1e-4*d.
 3. ``hnsw``    — the main path with its hierarchy: make_dataset(50k x 128,
    64 clusters) -> AnnIndex.build(graph="hnsw", m=16, efc=64) -> search
    1024 queries in batches of 128 with every spec of ``SPECS`` on its
@@ -47,7 +50,13 @@ Phases, each printing one JSON line:
    gather_distance on the unfused W=4 tile; l2_distance in ip mode at
    [1, 1M, 128], [32, 1M, 128] and [8, 8192, 128] on the retrieval
    phase's inputs, beside one ``torch.addmm`` call (cuBLAS fp32) that
-   computes the same function.
+   computes the same function; pool_merge also on the ip index's [128, 200]
+   pool (W=4); l2_distance's streaming and tiled kernels at [Q, C, 128]
+   for Q up to 16 and C from 8192 to 1M (the crossover that
+   ``choose_variant`` encodes).  Each time is the median of per-launch CUDA
+   event pairs (``ms``, as in earlier runs) and of the kernel's own device
+   time from the profiler (``device_ms``); ``event_floor`` is what the
+   event pair alone costs.
 
 For phases 3, 4 and the index of 5 each kernel engine must launch exactly
 the kernels its (engine, spec) runs (``expected_kernels``; every one at
@@ -147,6 +156,39 @@ def cuda_times(fn, reps: int, before=None, group: int = 25):
     return statistics.median(times)
 
 
+def kernel_device_ms(fn, key: str, reps: int = 100, before=None):
+    """Median device time (ms) of the kernels whose name holds ``key``,
+    from torch.profiler's CUPTI trace over ``reps`` calls of ``fn``: the
+    kernel's own run, without the ~4 us that a pair of CUDA events around
+    one launch adds (see ``event_floor_ms``).  In two whole runs on the
+    H100 the trace kept only 23-37 of 50 launches of some kernels (all of
+    them in a short run); the median is over those it kept, and it is None
+    below ten: an extra figure, which fails no check."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            if before is not None:
+                before()
+            fn()
+        torch.cuda.synchronize()
+    us = [getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
+          for e in prof.events() if key in e.name]
+    return statistics.median(us) / 1e3 if len(us) >= 10 else None
+
+
+def event_floor_ms():
+    """``cuda_times`` of a one-element add: what the event pair around a
+    launch costs on its own, beside the same add's device time."""
+    import torch
+    z = torch.zeros(1, device="cuda")
+    return {"events_ms": cuda_times(lambda: z.add_(1), 200),
+            "device_ms": kernel_device_ms(lambda: z.add_(1), "elementwise")}
+
+
 # --- phase 2: kernels against their plain versions ---------------------------
 def fused_expand_case(rng, B, L, d, n_rows, dev):
     """Inputs with every edge case the engine can hand the kernel."""
@@ -210,7 +252,7 @@ def check_fused_expand(rng, dev):
     return rows
 
 
-def pool_merge_case(rng, B, P, L, n, dev):
+def pool_merge_case(rng, B, P, L, n, dev, pool_sorted=True):
     import numpy as np
     import torch
     from repro_torch.kernels import ref
@@ -228,28 +270,43 @@ def pool_merge_case(rng, B, P, L, n, dev):
     pd[5], pi[5] = np.inf, n * 4                      # an empty pool
     nd[6], ni[6] = 1.0, 7 * 4                         # all-equal new tile
     t = lambda a: torch.as_tensor(a, device=dev)       # noqa: E731
-    # the pool must arrive sorted by (dist, id)
+    if not pool_sorted:
+        # any order, sentinels included: a stage-2 rerank leaves the pool
+        # unsorted, and the kernel may assume nothing
+        perm = np.argsort(rng.random((B, P)), axis=1)
+        pd = np.take_along_axis(pd, perm, axis=1)
+        pi = np.take_along_axis(pi, perm, axis=1)
+        return t(pd), t(pi), t(nd), t(ni)
     sd, si = ref.pool_merge_ref(t(pd), t(pi), t(pd[:, :0]), t(pi[:, :0]))
     return sd.contiguous(), si.contiguous(), t(nd), t(ni)
+
+
+# (P, L): the search paths' shapes (P = efs 100 or 200; L = W*M 32, 128 or
+# 256), then the block variant (P + L past WARP_MAX_NET, up to MAX_NET)
+POOL_SHAPES = tuple((P, L) for P in (64, 100, 200) for L in (32, 128, 256)) \
+    + ((300, 400), (1000, 1000), (2000, 2000))
 
 
 def check_pool_merge(rng, dev):
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pool_merge import pool_merge_cuda
+    from repro_torch.kernels.pool_merge import choose_variant, pool_merge_cuda
     rows = []
-    for P in (64, 100):
-        for L in (128, 256):
-            args = pool_merge_case(rng, 128, P, L, 1_000_000, dev)
+    for P, L in POOL_SHAPES:
+        for pool_sorted in (True, False):
+            args = pool_merge_case(rng, 128, P, L, 1_000_000, dev,
+                                   pool_sorted)
             kd, ki = pool_merge_cuda(*args)
             pd, pi = ref.pool_merge_ref(*args)
             torch.cuda.synchronize()
-            exact = torch.equal(kd.view(torch.int32), pd.view(torch.int32)) \
-                and torch.equal(ki, pi)
-            check(exact, f"pool_merge P={P} L={L}: not bit-exact")
-            ms = cuda_times(lambda: pool_merge_cuda(*args), 50)
-            rows.append({"P": P, "L": L, "bit_exact": exact,
-                         "max_abs_err": 0.0, "ms": ms})
+            exact = bit_equal(kd, pd) and bit_equal(ki, pi)
+            check(exact, f"pool_merge P={P} L={L} sorted={pool_sorted}: "
+                  "not bit-exact")
+            rows.append({"P": P, "L": L, "pool_sorted": pool_sorted,
+                         "variant": choose_variant(P, L)[0],
+                         "bit_exact": exact, "max_abs_err": 0.0,
+                         "ms": cuda_times(lambda: pool_merge_cuda(*args),
+                                          50)})
     return rows
 
 
@@ -385,6 +442,20 @@ L2_SHAPES = ((8, 16, 32), (70, 130, 96), (128, 256, 128), (33, 257, 200),
              (1, 1_000_000, 128), (33, 257, 960))
 
 
+# C values whose x[3:] view and unaligned base are checked as well
+L2_VIEW_C = (65_537, 131_075)
+
+
+def l2_stream_shapes():
+    """Both sides of the streaming/tiled split (Q in {1, 2, Qs, Qs + 1};
+    Qs at a C above and below its threshold) and ragged d (33: unaligned
+    rows, tiled; 100: aligned in fp32 only; 960: GIST)."""
+    from repro_torch.kernels.l2_distance import STREAM_MAX_Q as QS
+    return ((1, 65_537, 128), (2, 65_537, 128), (QS, 131_075, 128),
+            (QS + 1, 131_075, 128), (QS, 20_011, 128), (1, 3_001, 33),
+            (2, 20_000, 100), (4, 4_099, 960), (QS, 4_099, 960))
+
+
 def l2_errors(got, exp, d):
     """Max abs error and the worst ratio of |got - exp| to the tolerance
     atol + rtol*|exp| (rtol 1e-4, atol 1e-4*d: the reference sweep's fp32
@@ -398,27 +469,42 @@ def l2_errors(got, exp, d):
 def check_l2_distance(dev):
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.l2_distance import l2_distance_cuda
+    from repro_torch.kernels.l2_distance import choose_variant, \
+        l2_distance_cuda
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
-    for Q, C, d in L2_SHAPES:
+
+    def one(q, x, mode, what):
+        got = l2_distance_cuda(q, x, mode)
+        exp = ref.l2_distance_ref(q, x, mode)
+        torch.cuda.synchronize()
+        Q, d = q.shape
+        err, ratio = l2_errors(got, exp, d)
+        check(got.shape == exp.shape and ratio <= 1.0,
+              f"l2_distance {what} Q={Q} C={x.shape[0]} d={d} {q.dtype} "
+              f"{mode}: max abs err {err} beyond rtol 1e-4, atol 1e-4*d")
+        rows.append({"Q": Q, "C": x.shape[0], "d": d, "dtype": str(q.dtype),
+                     "mode": mode, "x": what,
+                     "variant": choose_variant(Q, x.shape[0], d,
+                                               q.element_size(),
+                                               x.data_ptr()),
+                     "max_abs_err": err, "err_over_tol": ratio,
+                     "ms": cuda_times(lambda: l2_distance_cuda(q, x, mode),
+                                      20)})
+
+    for Q, C, d in L2_SHAPES + l2_stream_shapes():
         q32 = torch.randn((Q, d), generator=gen, device=dev)
-        x32 = torch.randn((C, d), generator=gen, device=dev)
+        x32 = torch.randn((C + 3, d), generator=gen, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
-            q, x = q32.to(dtype), x32.to(dtype)
+            q, xs = q32.to(dtype), x32.to(dtype)
             for mode in ("l2", "ip"):
-                got = l2_distance_cuda(q, x, mode)
-                exp = ref.l2_distance_ref(q, x, mode)
-                torch.cuda.synchronize()
-                err, ratio = l2_errors(got, exp, d)
-                check(got.shape == exp.shape and ratio <= 1.0,
-                      f"l2_distance Q={Q} C={C} d={d} {dtype} {mode}: max "
-                      f"abs err {err} beyond rtol 1e-4, atol 1e-4*d")
-                rows.append({"Q": Q, "C": C, "d": d, "dtype": str(dtype),
-                             "mode": mode, "max_abs_err": err,
-                             "err_over_tol": ratio,
-                             "ms": cuda_times(
-                                 lambda: l2_distance_cuda(q, x, mode), 20)})
+                one(q, xs[:C].contiguous(), mode, "contiguous")
+            if C in L2_VIEW_C:
+                # an offset view (x[3:] is contiguous and is not copied) and
+                # a base two elements off 16-byte alignment (the tiled kernel)
+                one(q, xs[3:], "ip", "view x[3:]")
+                flat = xs.reshape(-1)[2:2 + C * d].view(C, d)
+                one(q, flat, "l2", "base not 16-byte aligned")
     return rows
 
 
@@ -628,9 +714,10 @@ def unit_rows_on(dev, gen, n, d=128):
     return x / torch.linalg.norm(x, dim=1, keepdim=True)
 
 
-def retrieval_phase(dev, main_launches):
-    """Serve, brute force and the ip index of the retrieval path; returns
-    the brute-force inputs for the timing phase."""
+def retrieval_phase(dev, main_launches, captures):
+    """Serve, brute force and the ip index of the retrieval path (with
+    ``captures`` around its searches, as in ``search_phase``); returns the
+    brute-force inputs for the timing phase."""
     import numpy as np
     import torch
     from repro_torch.configs import get_arch
@@ -692,7 +779,8 @@ def retrieval_phase(dev, main_launches):
           "cuts": "n 100k (the example) -> 50k, and not retrieval_cand's "
                   "1M: the host HNSW builder"})
     search_phase("retrieval", idx, qs, gt.cpu().numpy(), main_launches,
-                 specs=IP_SPECS, unfused_specs=IP_UNFUSED_SPECS, k=k)
+                 captures=captures, specs=IP_SPECS,
+                 unfused_specs=IP_UNFUSED_SPECS, k=k)
     return cands, queries, idx, qs
 
 
@@ -780,6 +868,8 @@ def timed_row(name, kernel, plain, nbytes, flops, err, shape, flush=None,
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": KERNEL_FILES[name], "max_abs_err": err,
             "ms": cuda_times(kernel, 200, flush),
+            "device_ms": kernel_device_ms(kernel, f"{name}_kernel",
+                                          before=flush),
             "plain_ms": cuda_times(plain, 50, flush),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -820,7 +910,7 @@ def time_fused_expand(capture, flush):
 def time_pool_merge(capture):
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.pool_merge import pool_merge_cuda
+    from repro_torch.kernels.pool_merge import choose_variant, pool_merge_cuda
     a, _ = capture.get("pool_merge")
     margs = (a[0].float().contiguous(), a[1].int().contiguous(),
              a[2].float().contiguous(), a[3].int().contiguous())
@@ -830,10 +920,19 @@ def time_pool_merge(capture):
     pd, pi = ref.pool_merge_ref(*margs)
     check(bit_equal(kd, pd) and bit_equal(ki, pi),
           "timing: pool_merge not bit-exact on captured inputs")
+    sorted_rows = int(rows_sorted(margs[0], margs[1]).sum())
     return timed_row("pool_merge", lambda: pool_merge_cuda(*margs),
                      lambda: ref.pool_merge_ref(*margs),
                      B * (P + L) * 8 + B * P * 8, 0, 0.0,
-                     {"B": B, "P": P, "L": L})
+                     {"B": B, "P": P, "L": L,
+                      "variant": choose_variant(P, L)[0],
+                      "sorted_pool_rows": sorted_rows})
+
+
+def rows_sorted(d, i):
+    """Per row: whether the pool is sorted by (dist, id)."""
+    d0, d1, i0, i1 = d[:, :-1], d[:, 1:], i[:, :-1], i[:, 1:]
+    return ((d0 < d1) | ((d0 == d1) & (i0 <= i1))).all(dim=1)
 
 
 def time_sq8_distance(capture, flush):
@@ -904,7 +1003,8 @@ def time_l2_distance(q, x, flush=None):
     PyTorch call computing the same function, which the port never calls."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.l2_distance import l2_distance_cuda
+    from repro_torch.kernels.l2_distance import choose_variant, \
+        l2_distance_cuda
     Q, d = q.shape
     C = x.shape[0]
     one = torch.ones((1, 1), device=q.device)
@@ -917,10 +1017,48 @@ def time_l2_distance(q, x, flush=None):
     return timed_row("l2_distance", lambda: l2_distance_cuda(q, x, "ip"),
                      lambda: ref.l2_distance_ref(q, x, "ip"),
                      4 * (Q * d + C * d + Q * C), 2 * Q * C * d, err,
-                     {"Q": Q, "C": C, "d": d, "mode": "ip"}, flush,
+                     {"Q": Q, "C": C, "d": d, "mode": "ip",
+                      "variant": choose_variant(Q, C, d, 4, x.data_ptr())},
+                     flush,
                      library=lambda: torch.addmm(one, q, x.T, alpha=-1),
                      library_note="torch.addmm(ones, q, x.T, alpha=-1), "
                                   "cuBLAS fp32, TF32 off")
+
+
+def l2_crossover(cands, queries, flush):
+    """The streaming and the tiled kernel, ip mode, at [Q, C, 128] for Q
+    and C on both sides of ``choose_variant``'s split: where the streaming
+    kernel stops paying.  Both are launched through the C entry point with
+    the variant given, past the chooser, here only; C below 1M is flushed
+    from the L2 before each launch."""
+    import torch
+    from repro_torch.kernels import l2_distance as L2K
+    launch = L2K._lib()
+
+    def run(q, x, variant):
+        out = torch.empty((q.shape[0], x.shape[0]), device=q.device)
+        err = launch(q.data_ptr(), x.data_ptr(), out.data_ptr(), q.shape[0],
+                     x.shape[0], q.shape[1], L2K.MODES.index("ip"), 0,
+                     L2K.VARIANTS.index(variant),
+                     torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"l2_crossover: {variant} launch failed ({err})")
+        return out
+
+    rows = []
+    for C in (8192, 32_768, 65_536, 131_072, 1_000_000):
+        x = cands[:C]
+        before = flush if C < 1_000_000 else None
+        for Q in (1, 4, 8, 12, L2K.STREAM_MAX_Q):
+            q = queries[:Q]
+            row = {"Q": Q, "C": C, "chosen": L2K.choose_variant(
+                Q, C, q.shape[1], 4, x.data_ptr())}
+            for v in ("stream", "tiled"):
+                fn = lambda: run(q, x, v)              # noqa: E731
+                row[f"{v}_ms"] = cuda_times(fn, 100, before)
+                row[f"{v}_device_ms"] = kernel_device_ms(
+                    fn, "l2_distance_kernel", before=before)
+            rows.append(row)
+    return rows
 
 
 def timing_phase(captures, main_launches, cands, queries):
@@ -942,7 +1080,8 @@ def timing_phase(captures, main_launches, cands, queries):
         "fused_expand": [time_fused_expand(w4, flush),
                          time_fused_expand(w1, flush)],
         "pool_merge": [time_pool_merge(w4), time_pool_merge(w1),
-                       time_pool_merge(both)],
+                       time_pool_merge(both),
+                       time_pool_merge(captures[("ip_W4", "fused")])],
         "sq8_distance": [time_sq8_distance(both, flush)],
         "gather_distance": [
             time_gather_distance(both, W, flush, "in-loop rerank [B, W]"),
@@ -953,13 +1092,15 @@ def timing_phase(captures, main_launches, cands, queries):
         "l2_distance": [time_l2_distance(queries[:1], cands),
                         time_l2_distance(queries, cands),
                         time_l2_distance(queries[:8], cands[:8192], flush)]}
-    emit({"phase": "timing", "kernels": rows})
+    emit({"phase": "timing", "kernels": rows,
+          "l2_crossover": l2_crossover(cands, queries, flush),
+          "event_floor": event_floor_ms()})
     table = []
     for name, rs in rows.items():
         row = dict(rs[0], launches=main_launches[name])
         row["other_shapes"] = [
-            {k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
-                               "library_ms")}
+            {k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms",
+                               "bound_ms", "library_ms")}
             for r in rs[1:]]
         table.append(row)
     return table
@@ -999,6 +1140,40 @@ def profile_batch(idx, queries, spec):
                     for dt, k, c in rows[:8]]}
 
 
+def ptxas_summary(log: str):
+    """Registers a thread and spill bytes of each kernel (each variant and
+    instantiation) from nvcc's ``-Xptxas -v`` output, names demangled
+    where ``c++filt`` is there."""
+    import re
+    import shutil
+    out, fn = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln) or re.search(
+            r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and fn:
+            spill = int(m.group(1)) + int(m.group(2))
+            if out and out[-1]["fn"] == fn:
+                out[-1]["spill_bytes"] = spill
+            else:
+                out.append({"fn": fn, "spill_bytes": spill})
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            if not (out and out[-1]["fn"] == fn):
+                out.append({"fn": fn})
+            out[-1]["registers"] = int(m.group(1))
+    if shutil.which("c++filt") and out:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            r["fn"] for r in out), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+        for r, n in zip(out, names):
+            r["fn"] = n.replace("(anonymous namespace)::", "").split("(")[0]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1022,12 +1197,9 @@ def main() -> int:
     # 1. build
     t0 = time.perf_counter()
     build.build_all()
-    ptxas = {k: [ln.strip() for ln in v.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for k, v in build.BUILD_LOG.items()}
     emit({"phase": "build", "secs": time.perf_counter() - t0, "gpu": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "ptxas": ptxas})
+          "ptxas": {k: ptxas_summary(v) for k, v in build.BUILD_LOG.items()}})
 
     # 2. kernels against their plain versions
     rng = np.random.default_rng(0)
@@ -1037,7 +1209,6 @@ def main() -> int:
           "gather_distance": check_gather_distance(rng, dev),
           "crouting_prune": check_crouting_prune(rng, dev),
           "l2_distance": check_l2_distance(dev)})
-
     main_launches = {}
     # 3. hnsw: the main path with its hierarchy, at a reduced n
     t0 = time.perf_counter()
@@ -1090,7 +1261,9 @@ def main() -> int:
             idx, ds.queries, SearchSpec(engine="unfused", **SPECS["W4"]))}
 
     # 5. the dlrm-mlperf retrieval path
-    cands, queries, ip_idx, ip_queries = retrieval_phase(dev, main_launches)
+    captures[("ip_W4", "fused")] = CaptureInputs()
+    cands, queries, ip_idx, ip_queries = retrieval_phase(dev, main_launches,
+                                                         captures)
     profiles["retrieval_ip_W4_fused"] = profile_batch(
         ip_idx, ip_queries, SearchSpec(**IP_SPECS["ip_W4"]))
     emit({"phase": "profile", **profiles})

@@ -87,8 +87,11 @@ def fused_expand(nbrs, queries, ed, dcq, bound2, cos_theta, table,
 
 
 def pool_merge(pool_d, pool_i, new_d, new_i):
-    """Merge new candidates into sorted pools and keep the best P, ordered
-    by (dist, id).  pool_d/i [B, P] sorted, new_d/i [B, L]."""
+    """Merge new candidates into the pools and keep the best P, ordered by
+    (dist, id).  pool_d/i [B, P], new_d/i [B, L].  The pool is sorted
+    except after a stage-2 rerank, which writes exact distances into it in
+    place (``core/search.py``); the kernel and the plain version order the
+    whole union and assume neither input sorted."""
     args = (pool_d.to(torch.float32).contiguous(),
             pool_i.to(torch.int32).contiguous(),
             new_d.to(torch.float32).contiguous(),

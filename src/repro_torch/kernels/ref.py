@@ -124,8 +124,9 @@ def fused_expand_ref(nbrs, queries, ed, dcq, bound2, cos_theta, table,
 
 
 def pool_merge_ref(pool_d, pool_i, new_d, new_i):
-    """Best P of the union of a sorted pool and new candidates, ordered by
-    (dist, id): a stable sort by id, then a stable sort by distance."""
+    """Best P of the union of a pool (sorted or not) and new candidates,
+    ordered by (dist, id): a stable sort by id, then a stable sort by
+    distance."""
     d = torch.cat([pool_d, new_d], dim=1)
     i = torch.cat([pool_i, new_i], dim=1)
     o = torch.sort(i, dim=1, stable=True).indices

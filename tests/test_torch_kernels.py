@@ -247,11 +247,20 @@ def test_fused_expand_kernel_matches_plain_on_gpu(cuda, L, d):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("P,L", [(64, 128), (100, 256)])
-def test_pool_merge_kernel_is_bit_exact_on_gpu(cuda, P, L):
+@pytest.mark.parametrize("P,L", [(P, L) for P in (64, 100, 200)
+                                 for L in (32, 128, 256)]
+                         + [(300, 400), (2000, 2000)])
+@pytest.mark.parametrize("pool", ["sorted", "shuffled"])
+def test_pool_merge_kernel_is_bit_exact_on_gpu(cuda, P, L, pool):
+    """Both variants (warp up to P + L = 512, block to 4096), on sorted
+    pools and on shuffled ones, as the stage-2 rerank leaves them."""
     from repro_torch.kernels.pool_merge import pool_merge_cuda
-    t = [torch.as_tensor(a, device=cuda)
-         for a in _merge_inputs(P * L, 128, P, L)]
+    pd, pi, nd, ni = _merge_inputs(P * L, 128, P, L)
+    if pool == "shuffled":
+        perm = np.argsort(np.random.default_rng(P + L).random(pd.shape), 1)
+        pd = np.take_along_axis(pd, perm, axis=1)
+        pi = np.take_along_axis(pi, perm, axis=1)
+    t = [torch.as_tensor(a, device=cuda) for a in (pd, pi, nd, ni)]
     kd, ki = pool_merge_cuda(*t)
     pd, pi = ref.pool_merge_ref(*t)
     assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))

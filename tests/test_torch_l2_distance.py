@@ -18,6 +18,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.l2_distance import STREAM_MAX_Q
 
 SWEEP = [(8, 16, 32), (70, 130, 96), (128, 256, 128), (33, 257, 200)]
 
@@ -96,17 +97,41 @@ def cuda():
     return torch.device("cuda")
 
 
+QS = STREAM_MAX_Q
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("q_n,c_n,d", SWEEP + [(1, 100_003, 128),
-                                               (33, 257, 960)])
+@pytest.mark.parametrize("q_n,c_n,d", SWEEP + [
+    (1, 100_003, 128), (33, 257, 960),
+    # both sides of the streaming/tiled split (Q, and C at Q = Qs), and
+    # ragged d
+    (2, 20_011, 128), (QS, 131_101, 128), (QS + 1, 131_101, 128),
+    (QS, 20_011, 128), (1, 5_003, 33), (2, 5_003, 100), (4, 2_051, 960),
+    (QS, 2_051, 960)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("mode", ["l2", "ip"])
-def test_kernel_matches_plain_on_gpu(cuda, q_n, c_n, d, dtype, mode):
+@pytest.mark.parametrize("view", ["contiguous", "offset"])
+def test_kernel_matches_plain_on_gpu(cuda, q_n, c_n, d, dtype, mode, view):
+    """``offset`` hands the kernel ``x[3:]`` of a contiguous tensor: no
+    copy, and a base that is 16-byte aligned only where 3 rows are (not at
+    d = 33, which takes the tiled kernel either way)."""
     from repro_torch.kernels.l2_distance import l2_distance_cuda
-    q, x = _inputs(q_n + d, q_n, c_n, d)
-    tq = torch.as_tensor(q, device=cuda).to(getattr(torch, dtype))
-    tx = torch.as_tensor(x, device=cuda).to(getattr(torch, dtype))
+    q, x = _inputs(q_n + d, q_n, c_n + 3, d)
+    dt = getattr(torch, dtype)
+    tq = torch.as_tensor(q, device=cuda).to(dt)
+    full = torch.as_tensor(x, device=cuda).to(dt)
+    tx = full[3:] if view == "offset" else full[:c_n]
+    assert tx.is_contiguous() and tx.shape == (c_n, d)
     got = l2_distance_cuda(tq, tx, mode)
     exp = ref.l2_distance_ref(tq, tx, mode)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, exp, rtol=1e-4, atol=1e-4 * d)
+
+
+@pytest.mark.gpu
+def test_stream_limits_match_the_kernel(cuda):
+    """The chooser's copy of the streaming kernel's limits is the one its
+    launcher enforces."""
+    from repro_torch.kernels import l2_distance as L2K
+    assert L2K.stream_limits() == (L2K.STREAM_MAX_Q, L2K.CHUNK_BYTES,
+                                   L2K.STREAM_MAX_QUERY_BYTES)
