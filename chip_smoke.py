@@ -9,17 +9,23 @@ Phases, each printing one JSON line:
    with nvcc, one process per source started at once, into
    build/repro_torch/.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
-   card (B=128): ``fused_expand`` (L in {128, 256}, d in {128, 960, 100},
-   with all-pruned and all-masked rows, out-of-range ids, the pad row and
-   bound2=+inf) must give a bit-equal prune mask, the same +inf pattern and
-   distances within rtol 1e-5; ``pool_merge`` (P in {64, 100, 200} x L in
-   {32, 128, 256} on the warp variant and P + L up to 4000 on the block
+   card (B=128): ``fused_expand`` (L in {32, 128, 256}, d in {128, 960,
+   100}, with all-pruned and all-masked rows, out-of-range and negative ids
+   handed to the kernel unmasked, the pad row and bound2=+inf; masks as
+   int8, bool or absent, ``prunes=False``, dcq/bound2 as [B, L], [B] and
+   [B, W, M] or expanded views, a table off 16-byte alignment; d in
+   {200, 384} at L=128 besides) must be bit-equal;
+   ``pool_merge`` (P in {64, 100, 200} x L in {32, 128, 256} on the warp
+   variant and P + L up to 4000 on the block
    variant, sorted and shuffled pools, exact ties, +inf/pad sentinels,
-   id*4+flags payloads) must be bit-exact; ``sq8_distance`` (L in {128,
-   256}, d in {128, 960, 100}, with all-masked rows, out-of-range and negative ids, the pad row and constant
-   dimensions), ``gather_distance`` (M in {4, 100, 128}, d in {128, 960,
-   100}, with and without a skip mask) and ``crouting_prune`` (L in {128,
-   256}, inf edge lengths, bound2 = +inf and 0) must be bit-equal;
+   id*4+flags payloads) must be bit-exact; ``sq8_distance`` (L in {32,
+   128, 256}, d in {128, 960, 100}, with all-masked rows, out-of-range and
+   negative ids unmasked, the pad row and constant dimensions; the eval
+   mask as int8, bool or absent, a code table off alignment; d in {200,
+   384} at L=128 besides), ``gather_distance`` (M in
+   {4, 100, 128}, d in {128, 960, 100}, with and without a skip mask) and
+   ``crouting_prune`` (L in {128, 256}, inf edge lengths, bound2 = +inf
+   and 0) must be bit-equal;
    ``l2_distance`` (the reference sweep's four shapes plus [1, 1M, 128]
    and [33, 257, 960], Q in {1, 2, Qs, Qs + 1} and C on both sides of the
    streaming/tiled split, d in {33, 100, 960}, an offset view x[3:] and a
@@ -56,7 +62,12 @@ Phases, each printing one JSON line:
    ``choose_variant`` encodes).  Each time is the median of per-launch CUDA
    event pairs (``ms``, as in earlier runs) and of the kernel's own device
    time from the profiler (``device_ms``); ``event_floor`` is what the
-   event pair alone costs.
+   event pair alone costs.  For ``fused_expand`` and ``sq8_distance`` the
+   row also carries the whole wrapper call's device time and kernel count
+   (``wrapper_device_ms``, ``wrapper_launches``), an empty kernel's time
+   on the same grid (``empty_launch_ms``) and the kernel's time on the
+   same inputs with every lane masked, which reads no row
+   (``no_rows_device_ms``).
 
 For phases 3, 4 and the index of 5 each kernel engine must launch exactly
 the kernels its (engine, spec) runs (``expected_kernels``; every one at
@@ -191,7 +202,8 @@ def event_floor_ms():
 
 # --- phase 2: kernels against their plain versions ---------------------------
 def fused_expand_case(rng, B, L, d, n_rows, dev):
-    """Inputs with every edge case the engine can hand the kernel."""
+    """Inputs with every edge case the engine can hand the kernel; the ids
+    out of range and negative are not masked (the kernel checks them)."""
     import numpy as np
     import torch
     table = rng.normal(size=(n_rows, d)).astype(np.float32)
@@ -212,10 +224,48 @@ def fused_expand_case(rng, B, L, d, n_rows, dev):
     ev[0], el[0], bound2[0] = 1, 1, 0.0               # all pruned
     ed[0] = rng.uniform(0, 30, size=L)                # (NaN never prunes)
     ev[1], el[1] = 0, 0                               # all masked
+    ev[2], el[2] = 1, 1                               # every bad id offered
     q = rng.normal(size=(B, d)).astype(np.float32)
     t = lambda a: torch.as_tensor(a, device=dev)       # noqa: E731
     return (t(nbrs), t(q), t(ed), t(dcq), t(bound2), 0.31, t(table),
             t(ev), t(el))
+
+
+# (L, d) of the two row kernels' cases: every width the search gives L,
+# and d across each count of 128-element passes the kernels are built for
+ROW_KERNEL_SHAPES = ([(L, d) for L in (32, 128, 256) for d in (128, 960, 100)]
+                     + [(128, 200), (128, 384)])
+
+
+EXPAND_FORMS = ("int8", "bool", "no_prune", "default_masks", "per_query",
+                "beam_view", "unaligned")
+
+
+def expand_form(raw, form):
+    """``fused_expand_case``'s inputs in one of the operand forms the
+    wrapper takes: (args, kwargs)."""
+    import torch
+    nbrs, q, ed, dcq, b2, ct, table, ev, el = raw
+    B, L = nbrs.shape
+    kw = dict(eval_mask=ev, prune_eligible=el)
+    if form == "bool":
+        kw = dict(eval_mask=ev != 0, prune_eligible=el != 0)
+    elif form == "no_prune":                  # the search loop at W > 1
+        kw = dict(eval_mask=ev != 0, prune_eligible=None, prunes=False)
+    elif form == "default_masks":
+        kw = {}
+    elif form == "per_query":
+        dcq, b2 = dcq[:, 0].contiguous(), b2[:, 0].contiguous()
+    elif form == "beam_view":                 # [B, W] over M, bound2 [B]
+        W = L // 32
+        dcq = dcq[:, ::32].contiguous()[:, :, None].expand(B, W, 32)
+        b2 = b2[:, 0].contiguous()[:, None].expand(B, L)
+    elif form == "unaligned":
+        flat = torch.empty(table.numel() + 1, dtype=table.dtype,
+                           device=table.device)
+        flat[1:] = table.reshape(-1)
+        table = flat[1:].view(table.shape)
+    return (nbrs, q, ed, dcq, b2, ct, table), kw
 
 
 def check_fused_expand(rng, dev):
@@ -223,32 +273,35 @@ def check_fused_expand(rng, dev):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fused_expand import fused_expand_cuda
     rows = []
-    for L in (128, 256):
-        for d in (128, 960, 100):
-            raw = fused_expand_case(rng, 128, L, d, 20_001, dev)
-            args = ops.prepare_fused_expand(*raw)
-            kd, kp = fused_expand_cuda(*args)
-            pd, pp = ref.fused_expand_ref(*args)
+    for L, d in ROW_KERNEL_SHAPES:
+        raw = fused_expand_case(rng, 128, L, d, 20_001, dev)
+        for form in EXPAND_FORMS:
+            args, kw = expand_form(raw, form)
+            kd, kp = fused_expand_cuda(*args, **kw)
+            pd, pp = ref.fused_expand_ref(*ops.prepare_fused_expand(
+                *args, **kw))
             torch.cuda.synchronize()
-            check(torch.equal(kp, pp), f"fused_expand L={L} d={d}: prune "
-                  "mask differs from the plain version")
-            check(torch.equal(torch.isinf(kd), torch.isinf(pd)),
-                  f"fused_expand L={L} d={d}: +inf pattern differs")
-            fin = torch.isfinite(pd)
-            err = (kd[fin] - pd[fin]).abs()
-            rel = float((err / pd[fin].abs().clamp_min(1e-30)).max()) \
-                if fin.any() else 0.0
-            check(rel <= 1e-5, f"fused_expand L={L} d={d}: rel err {rel}")
-            check(bool(kp[0][args[8][0] != 0].all()) and
-                  bool(torch.isinf(kd[0]).all()) and
-                  bool(torch.isinf(kd[1]).all()) and not bool(kp[1].any()),
-                  "fused_expand: all-pruned / all-masked rows wrong")
-            ms = cuda_times(lambda: fused_expand_cuda(*args), 50)
-            rows.append({"L": L, "d": d, "max_abs_err": float(err.max())
-                         if err.numel() else 0.0, "max_rel_err": rel,
-                         "bit_equal": bool(torch.equal(kd, pd)),
-                         "pruned": int(kp.sum()),
-                         "computed": int(fin.sum()), "ms": ms})
+            check(bit_equal(kp, pp) and bit_equal(kd, pd),
+                  f"fused_expand L={L} d={d} {form}: not bit-equal with "
+                  "the plain version")
+        args, kw = expand_form(raw, "int8")
+        kd, kp = fused_expand_cuda(*args, **kw)
+        ok = (args[0] >= 0) & (args[0] < args[6].shape[0])
+        check(bool((kp[0] == ok[0]).all()) and
+              bool(torch.isinf(kd[0]).all()) and
+              bool(torch.isinf(kd[1]).all()) and not bool(kp[1].any())
+              and bool(torch.isinf(kd[2][~ok[2]]).all())
+              and not bool(kp[2][~ok[2]].any()),
+              "fused_expand: all-pruned / all-masked / out-of-range "
+              "lanes wrong")
+        args, kw = expand_form(raw, "bool")
+        pd, pp = ref.fused_expand_ref(*ops.prepare_fused_expand(*args, **kw))
+        rows.append({"L": L, "d": d, "forms": list(EXPAND_FORMS),
+                     "bit_equal": True, "max_abs_err": 0.0,
+                     "pruned": int(pp.sum()),
+                     "computed": int(torch.isfinite(pd).sum()),
+                     "ms": cuda_times(
+                         lambda: fused_expand_cuda(*args, **kw), 50)})
     return rows
 
 
@@ -320,8 +373,8 @@ def bit_equal(a, b):
 
 def sq8_case(rng, B, L, d, n_rows, dev):
     """Stage-1 inputs with every edge case the engine can hand the kernel:
-    the pad row, out-of-range and negative ids, an all-masked row and
-    constant dimensions (scale 1e-12)."""
+    the pad row, out-of-range and negative ids (unmasked: the kernel checks
+    them), an all-masked row and constant dimensions (scale 1e-12)."""
     import numpy as np
     import torch
     from repro_torch.quant import sq8 as SQ
@@ -336,10 +389,31 @@ def sq8_case(rng, B, L, d, n_rows, dev):
     nbrs[2, 1::5] = -1
     ev = (rng.random((B, L)) < 0.7).astype(np.int8)
     ev[1] = 0                                         # all masked
+    ev[2] = 1                                         # every bad id offered
     ev[3] = 1                                         # all evaluated
     q = rng.normal(size=(B, d)).astype(np.float32)
     t = lambda a: torch.as_tensor(a, device=dev)       # noqa: E731
     return t(nbrs), t(q), t(ev), t(codes), t(qp.lo), t(qp.scale), t(qp.eps)
+
+
+SQ8_FORMS = ("int8", "bool", "no_mask", "unaligned")
+
+
+def sq8_form(raw, form):
+    """``sq8_case``'s inputs with the eval mask as int8, bool or None, or
+    the code table one byte off alignment."""
+    import torch
+    nbrs, q, ev, codes, lo, scale, eps = raw
+    if form == "bool":
+        ev = ev != 0
+    elif form == "no_mask":
+        ev = None
+    elif form == "unaligned":
+        flat = torch.empty(codes.numel() + 1, dtype=codes.dtype,
+                           device=codes.device)
+        flat[1:] = codes.reshape(-1)
+        codes = flat[1:].view(codes.shape)
+    return nbrs, q, ev, codes, lo, scale, eps
 
 
 def check_sq8_distance(rng, dev):
@@ -347,24 +421,28 @@ def check_sq8_distance(rng, dev):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.sq8_distance import sq8_distance_cuda
     rows = []
-    for L in (128, 256):
-        for d in (128, 960, 100):
-            args = ops.prepare_sq8_estimate(*sq8_case(rng, 128, L, d, 20_001,
-                                                      dev))
+    for L, d in ROW_KERNEL_SHAPES:
+        raw = sq8_case(rng, 128, L, d, 20_001, dev)
+        for form in SQ8_FORMS:
+            args = sq8_form(raw, form)
             ka, kl = sq8_distance_cuda(*args)
-            pa, pl = ref.sq8_estimate_ref(*args)
+            pa, pl = ref.sq8_estimate_ref(*ops.prepare_sq8_estimate(*args))
             torch.cuda.synchronize()
             check(bit_equal(ka, pa) and bit_equal(kl, pl),
-                  f"sq8_distance L={L} d={d}: not bit-equal with the plain "
-                  "version")
-            check(bool(torch.isinf(ka[1]).all()) and
-                  bool(torch.isfinite(ka[3]).all()) and
-                  bool(torch.isinf(ka[2][args[0][2] < 0]).all()),
-                  "sq8_distance: masked / evaluated / out-of-range rows wrong")
-            rows.append({"L": L, "d": d, "bit_equal": True,
-                         "max_abs_err": 0.0,
-                         "evaluated": int(args[2].sum()),
-                         "ms": cuda_times(lambda: sq8_distance_cuda(*args), 50)})
+                  f"sq8_distance L={L} d={d} {form}: not bit-equal with "
+                  "the plain version")
+        bad = (raw[0][2] < 0) | (raw[0][2] >= raw[3].shape[0])
+        check(bool(torch.isinf(ka[1]).all()) and
+              bool(torch.isfinite(ka[3]).all()) and
+              bool(torch.isinf(ka[2][bad]).all()) and
+              bool(torch.isfinite(ka[2][~bad]).all()),
+              "sq8_distance: masked / evaluated / out-of-range rows wrong")
+        args = sq8_form(raw, "bool")
+        pa, pl = ref.sq8_estimate_ref(*ops.prepare_sq8_estimate(*args))
+        rows.append({"L": L, "d": d, "forms": list(SQ8_FORMS),
+                     "bit_equal": True, "max_abs_err": 0.0,
+                     "evaluated": int(torch.isfinite(pa).sum()),
+                     "ms": cuda_times(lambda: sq8_distance_cuda(*args), 50)})
     return rows
 
 
@@ -811,8 +889,18 @@ class CaptureInputs:
         calls = {}
 
         def keep(x):
-            small = hasattr(x, "clone") and x.numel() <= 2 ** 24
-            return x.clone() if small else x
+            if not hasattr(x, "clone") or x.numel() > 2 ** 24:
+                return x
+            if x.is_contiguous() or x.numel() == 0:
+                return x.clone()
+            # a strided view (an operand expanded over lanes): copy the
+            # storage it spans and keep its strides
+            import torch
+            span = 1 + sum((n - 1) * st for n, st in zip(x.shape,
+                                                         x.stride()))
+            flat = torch.as_strided(x, (span,), (1,),
+                                    x.storage_offset()).clone()
+            return torch.as_strided(flat, x.shape, x.stride())
 
         def wrap(name):
             orig = self._orig[name]
@@ -879,32 +967,89 @@ def timed_row(name, kernel, plain, nbytes, flops, err, shape, flush=None,
             "shape": shape}
 
 
+def operand_bytes(x):
+    """Bytes of the distinct elements a tensor holds (an expanded view
+    counts its source once)."""
+    n = 1
+    for size, stride in zip(x.shape, x.stride()):
+        n *= size if stride else 1
+    return n * x.element_size()
+
+
+def wrapper_row(call, flush, reps: int = 50, tries: int = 3):
+    """All device time and kernels of one wrapper call (``call``), from
+    torch.profiler behind the L2 flush; the flush's own kernels (named by a
+    profile of the flush alone) are left out.  A trace that kept fewer
+    kernels than calls (the trace drops launches, see kernel_device_ms) is
+    taken again, up to ``tries`` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return [(e.name, getattr(e, "device_time", None)
+                 or getattr(e, "cuda_time", 0)) for e in prof.events()
+                if "CUDA" in str(e.device_type)]
+
+    flush_names = {n for n, _ in kernels(flush)}
+
+    def both():
+        flush()
+        call()
+    for _ in range(tries):
+        ours = [(n, us) for n, us in kernels(both) if n not in flush_names]
+        if len(ours) >= reps:
+            break
+    return {"wrapper_device_ms": sum(us for _, us in ours) / reps / 1e3,
+            "wrapper_launches": len(ours) / reps,
+            "wrapper_kernels": sorted({n[:60] for n, _ in ours})}
+
+
 def time_fused_expand(capture, flush):
     import torch
+    from repro_torch.kernels import fused_expand as FE
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.fused_expand import fused_expand_cuda
     a, kw = capture.get("fused_expand")
-    args = ops.prepare_fused_expand(*a, **kw)
-    nbrs, q = args[0], args[1]
+    args = ops.cuda_args_fused_expand(*a, **kw)
+    plain_args = ops.prepare_fused_expand(*a, **kw)
+    nbrs, q, ed, dcq, bound2, _, table, ev, pe, _ = args
     B, L = nbrs.shape
     d = q.shape[1]
-    kd, kp = fused_expand_cuda(*args)
-    pd, pp = ref.fused_expand_ref(*args)
-    check(torch.equal(kp, pp) and torch.equal(torch.isinf(kd),
-                                              torch.isinf(pd)),
-          "timing: fused_expand disagrees on captured inputs")
-    fin = torch.isfinite(pd)
-    err = float((kd[fin] - pd[fin]).abs().max()) if fin.any() else 0.0
-    computed = int(fin.sum())
-    # bytes: computed rows + side arrays (nbrs, ed, dcq, bound2 4 B; two
-    # int8 masks) + queries in; dist2 (4 B) + prune (1 B) out
-    nbytes = computed * d * 4 + B * L * (4 * 4 + 2) + B * d * 4 + B * L * 5
+    kd, kp = FE.fused_expand_cuda(*args)
+    pd, pp = ref.fused_expand_ref(*plain_args)
+    check(bit_equal(kp, pp) and bit_equal(kd, pd),
+          "timing: fused_expand not bit-equal on captured inputs")
+    computed = int(torch.isfinite(pd).sum())
+    # bytes: computed rows + each operand as handed over (nbrs, ed, dcq
+    # [B, W] over M, bound2 [B] over L, one-byte masks) + the queries in;
+    # dist2 (4 B) and prune (1 B) a lane out
+    side = sum(operand_bytes(x) for x in (nbrs, ed, dcq, bound2, ev, pe)
+               if x is not None)
+    nbytes = computed * d * 4 + side + B * d * 4 + B * L * 5
     flops = computed * 3 * d + B * L * 8
-    return timed_row("fused_expand", lambda: fused_expand_cuda(*args),
-                     lambda: ref.fused_expand_ref(*args), nbytes, flops, err,
-                     {"B": B, "L": L, "d": d, "table_rows": args[6].shape[0],
-                      "computed_lanes": computed,
-                      "pruned_lanes": int(kp.sum())}, flush)
+    row = timed_row("fused_expand", lambda: FE.fused_expand_cuda(*args),
+                    lambda: ref.fused_expand_ref(*plain_args), nbytes, flops,
+                    0.0, {"B": B, "L": L, "d": d,
+                          "table_rows": table.shape[0],
+                          "computed_lanes": computed,
+                          "pruned_lanes": int(kp.sum()),
+                          "kernel_prunes": pe is not None}, flush)
+    row.update(wrapper_row(lambda: ops.fused_expand(*a, **kw), flush))
+    row["empty_launch_ms"] = kernel_device_ms(
+        lambda: FE.empty_launch(B, L), "fused_expand_empty", before=flush)
+    # round trip 1 alone: the same call with every lane masked reads no row
+    none = ops.cuda_args_fused_expand(*a, **dict(
+        kw, eval_mask=torch.zeros((B, L), dtype=torch.bool, device=q.device)))
+    row["no_rows_device_ms"] = kernel_device_ms(
+        lambda: FE.fused_expand_cuda(*none), "fused_expand_kernel",
+        before=flush)
+    return row
 
 
 def time_pool_merge(capture):
@@ -936,25 +1081,39 @@ def rows_sorted(d, i):
 
 
 def time_sq8_distance(capture, flush):
+    import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.sq8_distance import sq8_distance_cuda
+    from repro_torch.kernels import sq8_distance as SK
     a, kw = capture.get("sq8_estimate")
-    args = ops.prepare_sq8_estimate(*a, **kw)
-    B, L = args[0].shape
-    d = args[1].shape[1]
-    ka, kl = sq8_distance_cuda(*args)
-    pa, pl = ref.sq8_estimate_ref(*args)
+    args = ops.cuda_args_sq8_estimate(*a, **kw)
+    plain_args = ops.prepare_sq8_estimate(*a, **kw)
+    nbrs, q, ev = args[:3]
+    B, L = nbrs.shape
+    d = q.shape[1]
+    ka, kl = SK.sq8_distance_cuda(*args)
+    pa, pl = ref.sq8_estimate_ref(*plain_args)
     check(bit_equal(ka, pa) and bit_equal(kl, pl),
           "timing: sq8_distance not bit-equal on captured inputs")
-    evaluated = int(args[2].sum())
+    evaluated = int(torch.isfinite(pa).sum())
     # bytes: evaluated code rows + nbrs (4 B) and eval (1 B) a lane + the
     # queries and the three [d] grid arrays in; ad2, lb2 (4 B each) out
     nbytes = evaluated * d + B * L * 5 + B * d * 4 + 3 * d * 4 + B * L * 8
     flops = evaluated * d * 8 + B * L * 3
-    return timed_row("sq8_distance", lambda: sq8_distance_cuda(*args),
-                     lambda: ref.sq8_estimate_ref(*args), nbytes, flops, 0.0,
-                     {"B": B, "L": L, "d": d, "code_rows": args[3].shape[0],
-                      "evaluated_lanes": evaluated}, flush)
+    row = timed_row("sq8_distance", lambda: SK.sq8_distance_cuda(*args),
+                    lambda: ref.sq8_estimate_ref(*plain_args), nbytes, flops,
+                    0.0, {"B": B, "L": L, "d": d,
+                          "code_rows": args[3].shape[0],
+                          "evaluated_lanes": evaluated}, flush)
+    row.update(wrapper_row(lambda: ops.sq8_estimate(*a, **kw), flush))
+    row["empty_launch_ms"] = kernel_device_ms(
+        lambda: SK.empty_launch(B, L), "sq8_distance_empty", before=flush)
+    # round trip 1 alone: the same call with every lane masked reads no row
+    none = (args[0], q, torch.zeros((B, L), dtype=torch.bool,
+                                    device=q.device), *args[3:])
+    row["no_rows_device_ms"] = kernel_device_ms(
+        lambda: SK.sq8_distance_cuda(*none), "sq8_distance_kernel",
+        before=flush)
+    return row
 
 
 def time_gather_distance(capture, width, flush, what):
@@ -1097,7 +1256,8 @@ def timing_phase(captures, main_launches, cands, queries):
           "event_floor": event_floor_ms()})
     table = []
     for name, rs in rows.items():
-        row = dict(rs[0], launches=main_launches[name])
+        row = dict(rs[0])
+        row["launches"] = main_launches[name]
         row["other_shapes"] = [
             {k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms",
                                "bound_ms", "library_ms")}

@@ -393,7 +393,9 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
             first = lane_ok
 
         dcq_eu = _rank_to_eu(dc, nq[:, None], norms[cl], metric)      # [B, W]
-        dcq_l = dcq_eu[:, :, None].expand(B, W, M).reshape(B, L)
+        # per lane as a [B, W, M] view: the fused kernel reads it through
+        # its zero stride; the router paths take the [B, L] copy
+        dcq_w = dcq_eu[:, :, None].expand(B, W, M)
         nx = norms[nbl]                                               # [B, L]
         if metric == "l2":
             bound2 = upper[:, None].expand(B, L)
@@ -416,14 +418,14 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         if not prunes or kernel_prunes:
             prune = torch.zeros_like(first)
         elif engine == "unfused" and rt.kernel_estimate:
-            prune = ops.crouting_prune(ed, dcq_l, bound2, try_prune,
-                                       ct_eff)[1] != 0
+            prune = ops.crouting_prune(ed, dcq_w.reshape(B, L), bound2,
+                                       try_prune, ct_eff)[1] != 0
         else:
             ctx = RouterContext(
                 arrays=arrays, queries=queries, nq=nq, c=c, dc=dc, nbrs=nbrs,
-                ed=ed, dcq=dcq_l, nx=nx, try_prune=try_prune, upper=upper,
-                cos_theta=cos_theta, metric=metric, n=n, beam_width=W,
-                max_degree=M)
+                ed=ed, dcq=dcq_w.reshape(B, L), nx=nx, try_prune=try_prune,
+                upper=upper, cos_theta=cos_theta, metric=metric, n=n,
+                beam_width=W, max_degree=M)
             prune = try_prune & (rt.estimate_rank(ctx) >= upper[:, None])
 
         if rescue:
@@ -464,14 +466,14 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         else:
             # exact fp32 distances (pruned/masked lanes load no row)
             if engine == "fused":
-                d2eu, prune8 = ops.fused_expand(
-                    nbrs, queries, ed, dcq_l, bound2, ct_eff, vecs,
+                d2eu, prune_k = ops.fused_expand(
+                    nbrs, queries, ed, dcq_w, bound2, ct_eff, vecs,
                     eval_mask=compute,
-                    prune_eligible=try_prune if kernel_prunes
-                    else torch.zeros_like(try_prune))
+                    prune_eligible=try_prune if kernel_prunes else None,
+                    prunes=kernel_prunes)
                 if kernel_prunes:
                     # the kernel made the prune decision and skipped those rows
-                    prune = prune8 != 0
+                    prune = prune_k
                     compute = compute & ~prune
             elif engine == "unfused":
                 d2eu = ops.gather_distance_pruned(

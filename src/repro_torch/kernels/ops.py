@@ -2,7 +2,9 @@
 
 The counterpart of ``repro.kernels.ops``.  Each wrapper normalises shapes
 and dtypes, applies the masking contract, and then dispatches on where its
-tensors lie:
+tensors lie (``fused_expand`` and ``sq8_estimate`` leave the range check
+and the mask forms to their kernels, so that on the search loop's tensors
+nothing runs before the launch):
 
 * CUDA tensors launch the hand-written kernel (``csrc/*.cu``, built with
   nvcc on first use) and add one to the wrapper's launch count.  A failed
@@ -32,28 +34,43 @@ def reset_launch_counts() -> None:
 
 
 def _lanes(x, B, L, dtype):
-    """[B] (broadcast over lanes) or [B, L] -> contiguous [B, L] ``dtype``."""
+    """[B] (broadcast over lanes), [B, L] or [B, W, M] (W*M == L) ->
+    contiguous [B, L] ``dtype``."""
     x = x.to(dtype)
     if x.ndim == 1:
         x = x[:, None].expand(B, L)
-    return x.contiguous()
+    return x.reshape(B, L).contiguous()
 
 
 def _f32(x):
     return x.to(torch.float32).contiguous()
 
 
+def _mask_bytes(x):
+    """A mask as the kernels read it: bool or int8 bytes as given, else
+    ``!= 0``."""
+    if x is None:
+        return None
+    if x.dtype not in (torch.bool, torch.int8, torch.uint8):
+        x = x != 0
+    return x.contiguous()
+
+
 def prepare_fused_expand(nbrs, queries, ed, dcq, bound2, cos_theta, table,
-                         eval_mask=None, prune_eligible=None):
-    """The arguments ``fused_expand`` hands to its kernel (or plain
-    version): contiguous [B, L] lanes, int8 masks intersected with the
-    in-range ids, and ``cos_theta`` rounded to f32."""
+                         eval_mask=None, prune_eligible=None, prunes=True):
+    """The plain version's arguments: contiguous [B, L] lanes, int8 masks
+    intersected with the in-range ids (``prunes=False``: no lane is
+    prune-eligible), and ``cos_theta`` rounded to f32."""
     B, L = nbrs.shape
     nbrs = nbrs.to(torch.int32).contiguous()
     in_range = ref.in_range(nbrs, table.shape[0])
     eval_mask = in_range if eval_mask is None else (eval_mask != 0) & in_range
-    prune_eligible = (in_range if prune_eligible is None
-                      else (prune_eligible != 0) & in_range)
+    if not prunes:
+        prune_eligible = torch.zeros_like(in_range)
+    elif prune_eligible is None:
+        prune_eligible = in_range
+    else:
+        prune_eligible = (prune_eligible != 0) & in_range
     return (nbrs, queries.to(torch.float32).contiguous(),
             _lanes(ed, B, L, torch.float32), _lanes(dcq, B, L, torch.float32),
             _lanes(bound2, B, L, torch.float32),
@@ -62,28 +79,48 @@ def prepare_fused_expand(nbrs, queries, ed, dcq, bound2, cos_theta, table,
             prune_eligible.to(torch.int8).contiguous())
 
 
+def cuda_args_fused_expand(nbrs, queries, ed, dcq, bound2, cos_theta, table,
+                           eval_mask=None, prune_eligible=None, prunes=True):
+    """What ``fused_expand`` hands ``fused_expand_cuda``: each argument as
+    given where the kernel takes its form (int32 ids, f32 side operands of
+    any strides, bool or int8 masks), else converted.  On the search
+    loop's forms this runs no tensor op (a conversion to the form a tensor
+    already has dispatches none)."""
+    ed, dcq, bound2 = (x.to(torch.float32) for x in (ed, dcq, bound2))
+    return (nbrs.to(torch.int32).contiguous(), _f32(queries), ed, dcq,
+            bound2, cos_theta, table, _mask_bytes(eval_mask),
+            _mask_bytes(prune_eligible), prunes)
+
+
 def fused_expand(nbrs, queries, ed, dcq, bound2, cos_theta, table,
-                 eval_mask=None, prune_eligible=None):
+                 eval_mask=None, prune_eligible=None, prunes=True):
     """Fused CRouting expansion: estimate + prune + conditional row load +
     exact squared L2 distance in one kernel (the paper's Alg. 2 inner loop).
 
-    nbrs [B, L] ids into ``table`` [N, d]; dcq/bound2 [B] or per-lane
-    [B, L].  ``eval_mask`` marks lanes to evaluate exactly when not pruned,
-    ``prune_eligible`` the lanes the estimate test applies to; both default
-    to "id in range".  As in ``repro.kernels.ops.fused_expand`` (and unlike
-    the JAX oracle ``repro.kernels.ref.fused_expand_ref``), both masks are
-    always intersected with ``0 <= nbr < N``: the kernel reads rows
-    unchecked.  Returns (dist2 [B, L] f32 with +inf for pruned/masked lanes,
-    prune [B, L] int8).
+    nbrs [B, L] ids into ``table`` [N, d]; ed/dcq/bound2 [B] (broadcast),
+    [B, L] or [B, W, M] with W*M == L (an expanded view costs no copy).
+    ``eval_mask`` marks lanes to evaluate exactly when not pruned,
+    ``prune_eligible`` the lanes the estimate test applies to (bool or
+    int8); both default to "id in range", and ``prunes=False`` prunes no
+    lane.  As in ``repro.kernels.ops.fused_expand`` (and unlike the JAX
+    oracle ``repro.kernels.ref.fused_expand_ref``), lanes with ids outside
+    ``[0, N)`` are never evaluated and never pruned.  Returns (dist2
+    [B, L] f32 with +inf for pruned/masked lanes, prune [B, L] bool).
+
+    On CUDA tensors of the search loop's forms (int32 ids, f32 operands,
+    bool masks) no tensor op runs before the launch: the kernel reads the
+    operands through their strides and does the range check itself.
     """
-    args = prepare_fused_expand(nbrs, queries, ed, dcq, bound2, cos_theta,
-                                table, eval_mask, prune_eligible)
-    if args[0].is_cuda:
+    if nbrs.is_cuda:
         from repro_torch.kernels.fused_expand import fused_expand_cuda
-        out = fused_expand_cuda(*args)
+        out = fused_expand_cuda(*cuda_args_fused_expand(
+            nbrs, queries, ed, dcq, bound2, cos_theta, table, eval_mask,
+            prune_eligible, prunes))
         LAUNCHES["fused_expand"] += 1
         return out
-    return ref.fused_expand_ref(*args)
+    return ref.fused_expand_ref(*prepare_fused_expand(
+        nbrs, queries, ed, dcq, bound2, cos_theta, table, eval_mask,
+        prune_eligible, prunes))
 
 
 def pool_merge(pool_d, pool_i, new_d, new_i):
@@ -105,9 +142,9 @@ def pool_merge(pool_d, pool_i, new_d, new_i):
 
 
 def prepare_sq8_estimate(nbrs, queries, eval_mask, codes, lo, scale, eps):
-    """The arguments ``sq8_estimate`` hands to its kernel (or plain
-    version): int32 ids, the eval mask intersected with the in-range ids as
-    int8, f32 queries and grid arrays, all contiguous."""
+    """The plain version's arguments: int32 ids, the eval mask intersected
+    with the in-range ids as int8, f32 queries and grid arrays, all
+    contiguous."""
     nbrs = nbrs.to(torch.int32).contiguous()
     in_range = ref.in_range(nbrs, codes.shape[0])
     eval_mask = in_range if eval_mask is None else (eval_mask != 0) & in_range
@@ -115,23 +152,34 @@ def prepare_sq8_estimate(nbrs, queries, eval_mask, codes, lo, scale, eps):
             codes.contiguous(), _f32(lo), _f32(scale), _f32(eps))
 
 
+def cuda_args_sq8_estimate(nbrs, queries, eval_mask, codes, lo, scale,
+                           eps):
+    """What ``sq8_estimate`` hands ``sq8_distance_cuda``: each argument as
+    given where the kernel takes its form, else converted.  On the search
+    loop's forms this runs no tensor op."""
+    return (nbrs.to(torch.int32).contiguous(), _f32(queries),
+            _mask_bytes(eval_mask), codes.contiguous(), _f32(lo), _f32(scale),
+            _f32(eps))
+
+
 def sq8_estimate(nbrs, queries, eval_mask, codes, lo, scale, eps):
     """Stage-1 SQ8 estimate + conservative lower bound over a neighbour
     tile (the two-stage search path).
 
     nbrs [B, L] rows of the uint8 code table ``codes`` [N, d]; lanes with
-    ``eval_mask == 0`` or ids outside ``[0, N)`` read no code row and report
-    +inf in both outputs.  Returns (ad2, lb2) [B, L] f32 in
-    squared-Euclidean space.
+    ``eval_mask == 0`` (bool or int8; None: every lane) or ids outside
+    ``[0, N)`` read no code row and report +inf in both outputs.  Returns
+    (ad2, lb2) [B, L] f32 in squared-Euclidean space.  On CUDA tensors of
+    the search loop's forms no tensor op runs before the launch.
     """
-    args = prepare_sq8_estimate(nbrs, queries, eval_mask, codes, lo, scale,
-                                eps)
-    if args[0].is_cuda:
+    if nbrs.is_cuda:
         from repro_torch.kernels.sq8_distance import sq8_distance_cuda
-        out = sq8_distance_cuda(*args)
+        out = sq8_distance_cuda(*cuda_args_sq8_estimate(
+            nbrs, queries, eval_mask, codes, lo, scale, eps))
         LAUNCHES["sq8_distance"] += 1
         return out
-    return ref.sq8_estimate_ref(*args)
+    return ref.sq8_estimate_ref(*prepare_sq8_estimate(
+        nbrs, queries, eval_mask, codes, lo, scale, eps))
 
 
 def prepare_gather_distance(indices, queries, table, skip=None):

@@ -106,7 +106,8 @@ def fused_expand_ref(nbrs, queries, ed, dcq, bound2, cos_theta, table,
     ``repro.kernels.ref.fused_expand_ref`` does not intersect caller
     masks; ``repro.kernels.ops.fused_expand`` does, and so does the port).
     Lanes that are not evaluated or are pruned read the pad row (the
-    table's last row) here and report +inf.
+    table's last row) here and report +inf.  ``prune`` is bool, as the
+    kernel writes it.
     """
     n = table.shape[0]
     if dcq.ndim == 1:
@@ -120,7 +121,7 @@ def fused_expand_ref(nbrs, queries, ed, dcq, bound2, cos_theta, table,
     safe = torch.where(fetch, nbrs, n - 1).long()
     d2 = l2sq_rows(queries, table[safe])
     d2 = torch.where(fetch, d2, torch.full_like(d2, float("inf")))
-    return d2, prune.to(torch.int8)
+    return d2, prune
 
 
 def pool_merge_ref(pool_d, pool_i, new_d, new_i):

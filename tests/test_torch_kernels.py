@@ -58,7 +58,7 @@ def test_fused_expand_matches_jax_oracle(B, L, N, d):
     np.testing.assert_array_equal(np.isinf(jd), np.isinf(td.numpy()))
     fin = np.isfinite(jd)
     np.testing.assert_allclose(td.numpy()[fin], jd[fin], rtol=1e-6)
-    assert tp.dtype == torch.int8 and td.dtype == torch.float32
+    assert tp.dtype == torch.bool and td.dtype == torch.float32
 
 
 def test_fused_expand_masks_out_of_range_ids():
@@ -101,6 +101,155 @@ def test_fused_expand_default_masks_and_broadcast_lanes():
     np.testing.assert_array_equal(fin, np.isfinite(td.numpy()))
     np.testing.assert_allclose(td.numpy()[fin], np.asarray(jd)[fin],
                                rtol=1e-6)
+
+
+def _operand_form(raw, form, W=None):
+    """The raw ``_expand_inputs`` tensors in one of the forms the search
+    loop and other callers hand ``ops.fused_expand``: (args, kwargs)."""
+    nbrs, q, ed, dcq, b2, table, ev, el = raw
+    B, L = nbrs.shape
+    kw = dict(eval_mask=ev, prune_eligible=el)
+    if form == "bool":
+        kw = dict(eval_mask=ev != 0, prune_eligible=el != 0)
+    elif form == "no_prune":
+        kw = dict(eval_mask=ev != 0, prune_eligible=None, prunes=False)
+    elif form == "default_masks":
+        kw = {}
+    elif form == "per_query":                 # dcq, bound2 [B]
+        dcq, b2 = dcq[:, 0].contiguous(), b2[:, 0].contiguous()
+    elif form == "beam_view":                 # [B, W] over M, expanded bound2
+        W = W or max(1, L // 32)
+        dcq = dcq.reshape(B, W, L // W)[:, :, 0].contiguous()[:, :, None] \
+            .expand(B, W, L // W)
+        b2 = b2[:, 0].contiguous()[:, None].expand(B, L)
+    elif form == "unaligned":                 # a table one element off
+        flat = torch.empty(table.numel() + 1, dtype=table.dtype,
+                           device=table.device)
+        flat[1:] = table.reshape(-1)
+        table = flat[1:].view(table.shape)
+    return (nbrs, q, ed, dcq, b2, 0.31, table), kw
+
+
+OPERAND_FORMS = ("int8", "bool", "no_prune", "default_masks", "per_query",
+                 "beam_view", "unaligned")
+
+
+@pytest.mark.parametrize("form", OPERAND_FORMS)
+def test_fused_expand_operand_forms_match_jax_oracle(form):
+    """Every operand form the wrapper takes (bool masks, no prune mask,
+    prunes=False, [B] and [B, W, M]-view side operands, an unaligned
+    table) gives the JAX oracle's result on the equivalent dense inputs,
+    with a bool prune mask."""
+    raw = [torch.as_tensor(a) for a in _expand_inputs(11, 4, 64, 90, 20)]
+    raw[0][1, :4] = -2                        # negative ids
+    args, kw = _operand_form(raw, form)
+    td, tp = ops.fused_expand(*args, **kw)
+    nbrs, q, ed, dcq, b2, ct, table = args
+    B, L = nbrs.shape
+    inr = ((nbrs >= 0) & (nbrs < table.shape[0])).numpy()
+    ev = kw.get("eval_mask", None)
+    ev = inr if ev is None else (ev.numpy() != 0) & inr
+    el = kw.get("prune_eligible", None)
+    el = (np.zeros_like(inr) if not kw.get("prunes", True) else
+          inr if el is None else (el.numpy() != 0) & inr)
+    dense = [x.reshape(B, -1).expand(B, L).contiguous().numpy()
+             if x.ndim == 3 else x.numpy() for x in (dcq, b2)]
+    jd, jp = jref.fused_expand_ref(
+        jnp.asarray(np.where(inr, nbrs.numpy(), 0)), jnp.asarray(q.numpy()),
+        jnp.asarray(ed.numpy()), *map(jnp.asarray, dense), ct,
+        jnp.asarray(table.contiguous().numpy()),
+        eval_mask=jnp.asarray(ev.astype(np.int8)),
+        prune_eligible=jnp.asarray(el.astype(np.int8)))
+    assert tp.dtype == torch.bool
+    np.testing.assert_array_equal(np.asarray(jp) != 0, tp.numpy())
+    jd = np.asarray(jd)
+    np.testing.assert_array_equal(np.isinf(jd), np.isinf(td.numpy()))
+    fin = np.isfinite(jd)
+    np.testing.assert_allclose(td.numpy()[fin], jd[fin], rtol=1e-6)
+    if form == "no_prune":
+        assert not tp.any()
+
+
+@pytest.mark.parametrize("shape", ["B", "BL", "BWM", "BL_expanded",
+                                   "BL_transposed"])
+def test_lane_strides_read_each_lane(shape):
+    """``fused_expand.lane_strides`` gives the offsets the kernel reads lane
+    (b, l) at: b*sb + (l // m)*sw + (l % m)*sm into the operand's storage."""
+    from repro_torch.kernels.fused_expand import lane_strides
+    B, W, M = 3, 4, 8
+    L = W * M
+    base = torch.arange(4 * B * L, dtype=torch.float32)
+    x = {"B": base[:B], "BL": base[:B * L].view(B, L),
+         "BWM": base[:B * W].view(B, W)[:, :, None].expand(B, W, M),
+         "BL_expanded": base[:B][:, None].expand(B, L),
+         "BL_transposed": base[:B * L].view(L, B).t()}[shape]
+    dense = x[:, None].expand(B, L) if x.ndim == 1 else x.reshape(B, L)
+    sb, sw, sm, m = lane_strides(x, B, L)
+    for b in range(B):
+        for lane in range(L):
+            off = x.storage_offset() + b * sb + (lane // m) * sw \
+                + (lane % m) * sm
+            assert base[off] == dense[b, lane]
+    with pytest.raises(ValueError):
+        lane_strides(base[:B * L].view(B, L // 2, 2)[:, :-1], B, L)
+
+
+class _OpCount(torch.utils._python_dispatch.TorchDispatchMode):
+    """Every aten op dispatched inside the mode, by name."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
+def test_wrappers_prepare_cuda_launch_without_tensor_ops():
+    """On the search loop's own argument forms (int32 ids, f32 operands,
+    a [B, W, M] zero-stride dcq, an expanded [B, L] bound2, bool masks,
+    no prune mask), the CUDA side of ``ops.fused_expand`` and
+    ``ops.sq8_estimate`` runs no tensor op before the launch but the
+    output allocations.  Checked on CPU tensors routed through the same
+    argument functions; the old preparation runs many."""
+    from repro_torch.kernels import fused_expand as FE
+    from repro_torch.kernels import sq8_distance as SK
+    B, W, M, d, n = 4, 4, 8, 16, 50
+    L = W * M
+    g = torch.Generator().manual_seed(0)
+    nbrs = torch.randint(-1, n + 2, (B, L), generator=g, dtype=torch.int32)
+    queries = torch.randn(B, d, generator=g)
+    table = torch.randn(n, d, generator=g)
+    ed = torch.rand(B, L, generator=g)
+    dcq = torch.rand(B, W, generator=g)[:, :, None].expand(B, W, M)
+    bound2 = torch.rand(B, generator=g)[:, None].expand(B, L)
+    compute = torch.rand(B, L, generator=g) < 0.5
+    try_prune = torch.rand(B, L, generator=g) < 0.5
+    codes = torch.randint(0, 256, (n, d), generator=g, dtype=torch.uint8)
+    lo, scale, eps = (torch.rand(d, generator=g) for _ in range(3))
+    calls = {
+        "fused_expand": lambda **kw: FE.launch_args(
+            *ops.cuda_args_fused_expand(nbrs, queries, ed, dcq, bound2, 0.3,
+                                        table, eval_mask=compute, **kw)),
+        "sq8_estimate": lambda: SK.launch_args(*ops.cuda_args_sq8_estimate(
+            nbrs, queries, compute, codes, lo, scale, eps))}
+    for name, fn, kw in (
+            ("fused_expand", calls["fused_expand"],
+             dict(prune_eligible=None, prunes=False)),
+            ("fused_expand", calls["fused_expand"],
+             dict(prune_eligible=try_prune)),
+            ("sq8_estimate", calls["sq8_estimate"], {})):
+        with _OpCount() as c:
+            outs, _ = fn(**kw)
+        assert c.ops == ["aten.empty.memory_format"] * 2, (name, c.ops)
+        assert all(o.shape == (B, L) for o in outs)
+    with _OpCount() as c:
+        ops.prepare_fused_expand(nbrs, queries, ed, dcq, bound2, 0.3, table,
+                                 eval_mask=compute, prunes=False)
+        ops.prepare_sq8_estimate(nbrs, queries, compute, codes, lo, scale,
+                                 eps)
+    assert sum(o != "aten.empty.memory_format" for o in c.ops) >= 10
 
 
 @pytest.mark.parametrize("B,M", [(8, 128), (3, 40)])
@@ -234,15 +383,23 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,d", [(128, 128), (256, 960), (128, 100)])
-def test_fused_expand_kernel_matches_plain_on_gpu(cuda, L, d):
+@pytest.mark.parametrize("form", OPERAND_FORMS)
+@pytest.mark.parametrize("L,d", [(L, d) for L in (32, 128, 256)
+                                 for d in (128, 960, 100)]
+                         + [(128, 200), (128, 384)])
+def test_fused_expand_kernel_matches_plain_on_gpu(cuda, L, d, form):
+    """Bit-equal with the plain version on every operand form, with ids
+    past the table and negative ids handed to the kernel unmasked."""
     from repro_torch.kernels.fused_expand import fused_expand_cuda
-    raw = _expand_inputs(L + d, 128, L, 5000, d, in_range=False)
-    t = [torch.as_tensor(a, device=cuda) for a in raw]
-    args = ops.prepare_fused_expand(*t[:5], 0.31, t[5], t[6], t[7])
-    kd, kp = fused_expand_cuda(*args)
-    pd, pp = ref.fused_expand_ref(*args)
-    assert torch.equal(kp, pp)
+    raw = [torch.as_tensor(a, device=cuda)
+           for a in _expand_inputs(L + d, 128, L, 5000, d, in_range=False)]
+    raw[0][5, 1::3] = -7
+    if form in ("int8", "bool"):
+        raw[6][7], raw[7][7] = 1, 1           # every out-of-range id offered
+    args, kw = _operand_form(raw, form)
+    kd, kp = fused_expand_cuda(*args, **kw)
+    pd, pp = ref.fused_expand_ref(*ops.prepare_fused_expand(*args, **kw))
+    assert kp.dtype == torch.bool and torch.equal(kp, pp)
     assert torch.equal(kd, pd)       # same summation order: bit-equal
 
 

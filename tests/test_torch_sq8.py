@@ -205,13 +205,64 @@ def cuda():
     return torch.device("cuda")
 
 
+def _sq8_form(raw, form):
+    """The raw ``_sq8_inputs`` tensors with the eval mask as int8, bool or
+    None, or the code table one byte off alignment; negative and
+    out-of-range ids are handed to the kernel unmasked."""
+    nbrs, q, ev, codes, lo, scale, eps = raw
+    N = codes.shape[0]
+    nbrs[2, ::3] = N + 5
+    nbrs[2, 1::3] = -1
+    ev[2] = 1
+    if form == "bool":
+        ev = ev != 0
+    elif form == "no_mask":
+        ev = None
+    elif form == "unaligned":
+        flat = torch.empty(codes.numel() + 1, dtype=codes.dtype,
+                           device=codes.device)
+        flat[1:] = codes.reshape(-1)
+        codes = flat[1:].view(codes.shape)
+    return nbrs, q, ev, codes, lo, scale, eps
+
+
+SQ8_FORMS = ("int8", "bool", "no_mask", "unaligned")
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("L,d", [(128, 128), (256, 960), (128, 100)])
-def test_sq8_distance_kernel_is_bit_equal_on_gpu(cuda, L, d):
+@pytest.mark.parametrize("form", SQ8_FORMS)
+@pytest.mark.parametrize("L,d", [(L, d) for L in (32, 128, 256)
+                                 for d in (128, 960, 100)]
+                         + [(128, 200), (128, 384)])
+def test_sq8_distance_kernel_is_bit_equal_on_gpu(cuda, L, d, form):
     from repro_torch.kernels.sq8_distance import sq8_distance_cuda
     raw = _sq8_inputs(L + d, 128, L, 5000, d, "constant")
-    args = ops.prepare_sq8_estimate(*[torch.as_tensor(a, device=cuda)
-                                      for a in raw])
+    args = _sq8_form([torch.as_tensor(a, device=cuda) for a in raw], form)
     ka, kl = sq8_distance_cuda(*args)
-    pa, pl = ref.sq8_estimate_ref(*args)
+    pa, pl = ref.sq8_estimate_ref(*ops.prepare_sq8_estimate(*args))
     assert torch.equal(ka, pa) and torch.equal(kl, pl)
+    assert torch.isinf(ka[2, ::3]).all() and torch.isinf(ka[2, 1::3]).all()
+
+
+@pytest.mark.parametrize("form", SQ8_FORMS)
+def test_sq8_estimate_operand_forms_match_jax_oracle(form):
+    """The wrapper's mask forms and an unaligned code table, with negative
+    and out-of-range ids unmasked, give the JAX oracle's result on the
+    equivalent masked inputs."""
+    raw = _sq8_inputs(7, 3, 32, 60, 24)
+    args = _sq8_form([torch.as_tensor(a) for a in raw], form)
+    ta, tl = ops.sq8_estimate(*args)
+    nbrs = args[0].numpy()
+    inr = (nbrs >= 0) & (nbrs < 60)
+    ev = inr if args[2] is None else (args[2].numpy() != 0) & inr
+    ja, jl = jref.sq8_estimate_ref(
+        jnp.asarray(np.where(inr, nbrs, 0)), jnp.asarray(args[1].numpy()),
+        jnp.asarray(ev.astype(np.int8)),
+        *[jnp.asarray(a.contiguous().numpy()) for a in args[3:]])
+    for j, t in ((ja, ta), (jl, tl)):
+        j = np.asarray(j)
+        np.testing.assert_array_equal(np.isinf(j), np.isinf(t.numpy()))
+        fin = np.isfinite(j)
+        np.testing.assert_allclose(t.numpy()[fin], j[fin], rtol=1e-5,
+                                   atol=1e-5)
+    assert np.isinf(ta.numpy()[~inr]).all()
