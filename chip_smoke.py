@@ -22,10 +22,14 @@ Phases, each printing one JSON line:
    128, 256}, d in {128, 960, 100}, with all-masked rows, out-of-range and
    negative ids unmasked, the pad row and constant dimensions; the eval
    mask as int8, bool or absent, a code table off alignment; d in {200,
-   384} at L=128 besides), ``gather_distance`` (M in
-   {4, 100, 128}, d in {128, 960, 100}, with and without a skip mask) and
-   ``crouting_prune`` (L in {128, 256}, inf edge lengths, bound2 = +inf
-   and 0) must be bit-equal;
+   384} at L=128 besides), ``gather_distance`` (M in {4, 100, 128}, d in
+   {128, 960, 100}, and M in {4, 128} at d in {1536, 2050}, past one
+   sweep of the query; no mask, a compute or a skip mask as bool, int8 or
+   uint8, a table off 16-byte alignment; out-of-range and negative ids
+   unmasked) and ``crouting_prune`` (L in {128, 256}; ed, dcq and bound2
+   as [B], [B, L], transposed, expanded and [B, W, M] zero-stride views;
+   valid as int8, bool or uint8; inf edge lengths, NaN estimates, bound2 =
+   +inf and 0) must be bit-equal;
    ``l2_distance`` (the reference sweep's four shapes plus [1, 1M, 128]
    and [33, 257, 960], Q in {1, 2, Qs, Qs + 1} and C on both sides of the
    streaming/tiled split, d in {33, 100, 960}, an offset view x[3:] and a
@@ -61,13 +65,17 @@ Phases, each printing one JSON line:
    for Q up to 16 and C from 8192 to 1M (the crossover that
    ``choose_variant`` encodes).  Each time is the median of per-launch CUDA
    event pairs (``ms``, as in earlier runs) and of the kernel's own device
-   time from the profiler (``device_ms``); ``event_floor`` is what the
-   event pair alone costs.  For ``fused_expand`` and ``sq8_distance`` the
-   row also carries the whole wrapper call's device time and kernel count
+   time from the profiler (``device_ms``, with the launches the trace
+   kept beside it, ``device_kept``: each profiler window is padded with
+   spin-kernel launches at both ends, without which a long run's trace
+   lost launches); ``event_floor`` is what the event pair alone costs,
+   with that trace check.  For ``fused_expand``, ``sq8_distance``, ``gather_distance`` (at
+   its three call sites) and ``crouting_prune`` the row also carries the
+   whole wrapper call's device time and kernel count
    (``wrapper_device_ms``, ``wrapper_launches``), an empty kernel's time
-   on the same grid (``empty_launch_ms``) and the kernel's time on the
-   same inputs with every lane masked, which reads no row
-   (``no_rows_device_ms``).
+   on the same grid (``empty_launch_ms``) and, for the row kernels, the
+   kernel's time on the same inputs with every lane masked, which reads
+   no row (``no_rows_device_ms``).
 
 For phases 3, 4 and the index of 5 each kernel engine must launch exactly
 the kernels its (engine, spec) runs (``expected_kernels``; every one at
@@ -167,37 +175,112 @@ def cuda_times(fn, reps: int, before=None, group: int = 25):
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, key: str, reps: int = 100, before=None):
-    """Median device time (ms) of the kernels whose name holds ``key``,
-    from torch.profiler's CUPTI trace over ``reps`` calls of ``fn``: the
-    kernel's own run, without the ~4 us that a pair of CUDA events around
-    one launch adds (see ``event_floor_ms``).  In two whole runs on the
-    H100 the trace kept only 23-37 of 50 launches of some kernels (all of
-    them in a short run); the median is over those it kept, and it is None
-    below ten: an extra figure, which fails no check."""
+# launches of torch's one-thread spin kernel at each end of a profiler
+# window: late in a long process the trace loses a fixed number of activity
+# records a window (event_floor_ms's trace check), and these are what it
+# loses instead of the timed launches
+TRACE_PAD_LAUNCHES = 64
+PAD_KERNEL = "spin_kernel"
+
+
+def _pad_launches(n: int) -> None:
+    import torch
+    for _ in range(n):
+        torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+
+
+def traced_kernels(fn, reps: int, before=None,
+                   pad: int = TRACE_PAD_LAUNCHES):
+    """(name, device us) of every kernel torch.profiler's CUPTI trace kept
+    over ``reps`` calls of ``fn`` (``before`` runs ahead of each call),
+    with ``pad`` spin-kernel launches at both ends of the window, which are
+    left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_launches(pad)
         for _ in range(reps):
             if before is not None:
                 before()
             fn()
         torch.cuda.synchronize()
-    us = [getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
-          for e in prof.events() if key in e.name]
-    return statistics.median(us) / 1e3 if len(us) >= 10 else None
+        _pad_launches(pad)
+    return [(e.name, getattr(e, "device_time", None)
+             or getattr(e, "cuda_time", 0)) for e in prof.events()
+            if "CUDA" in str(e.device_type) and PAD_KERNEL not in e.name]
+
+
+def kernel_device_ms(fn, key: str, reps: int = 100, before=None,
+                     tries: int = 3):
+    """(median device time in ms, "kept/reps") of the kernels whose name
+    holds ``key`` in the profiler's trace of ``reps`` calls of ``fn``: the
+    kernel's own run, without the ~5 us that a pair of CUDA events around
+    one launch adds (see ``event_floor_ms``).  A window that lost launches
+    is taken again, up to ``tries`` windows, and the fullest is used; its
+    kept count stands beside every device time, and the median is None
+    below ten."""
+    us = []
+    for _ in range(tries):
+        got = [t for n, t in traced_kernels(fn, reps, before) if key in n]
+        us = max(us, got, key=len)
+        if len(us) >= reps:
+            break
+    return (statistics.median(us) / 1e3 if len(us) >= 10 else None,
+            f"{len(us)}/{reps}")
+
+
+def trace_check(pad: int, reps: int = 100):
+    """Which of ``reps`` one-element adds the trace lost (by index, from
+    each host op's linked kernels), with ``pad`` spin launches at both ends
+    of the window; the kernel names the padding left in the trace; and the
+    median lag from each add's host op to its kernel (negative: the
+    kernel's converted timestamp runs ahead of the host op's)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    z = torch.zeros(1, device="cuda")
+    z.add_(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _pad_launches(pad)
+        for _ in range(reps):
+            z.add_(1)
+        torch.cuda.synchronize()
+        _pad_launches(pad)
+    evs = prof.events()
+    host = sorted((e for e in evs if e.name == "aten::add_"),
+                  key=lambda e: e.time_range.start)
+    kern = sorted((e for e in evs if "CUDA" in str(e.device_type)
+                   and "elementwise" in e.name),
+                  key=lambda e: e.time_range.start)
+    kept = [h for h in host if h.kernels]
+    lags = ([k.time_range.start - h.time_range.start
+             for h, k in zip(kept, kern)] if len(kept) == len(kern) else [])
+    dropped = [i for i, h in enumerate(host) if not h.kernels]
+    return {"kept": f"{len(host) - len(dropped)}/{len(host)}",
+            "dropped_at": dropped,
+            "pad_kernels": sorted({e.name[:40] for e in evs
+                                   if "CUDA" in str(e.device_type)
+                                   and "elementwise" not in e.name}),
+            "launch_to_kernel_us": statistics.median(lags) if lags else None}
 
 
 def event_floor_ms():
     """``cuda_times`` of a one-element add: what the event pair around a
-    launch costs on its own, beside the same add's device time."""
+    launch costs on its own, beside the same add's device time; and the
+    trace check, with and without the padding."""
     import torch
     z = torch.zeros(1, device="cuda")
-    return {"events_ms": cuda_times(lambda: z.add_(1), 200),
-            "device_ms": kernel_device_ms(lambda: z.add_(1), "elementwise")}
+    out = {"events_ms": cuda_times(lambda: z.add_(1), 200)}
+    out["device_ms"], out["device_kept"] = kernel_device_ms(
+        lambda: z.add_(1), "elementwise")
+    out["trace_check"] = {"unpadded": trace_check(0),
+                          "padded": trace_check(TRACE_PAD_LAUNCHES)}
+    return out
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
@@ -446,47 +529,114 @@ def check_sq8_distance(rng, dev):
     return rows
 
 
+# (M, d) of the gather checks: the call sites' widths across d, and d past
+# 1024, where the row is swept 1024 elements at a time (float4 and scalar)
+GATHER_SHAPES = ([(M, d) for M in (4, 100, 128) for d in (128, 960, 100)]
+                 + [(M, d) for M in (4, 128) for d in (1536, 2050)])
+GATHER_FORMS = ("none", "compute_bool", "compute_int8", "compute_uint8",
+                "skip_bool", "skip_int8", "skip_uint8", "unaligned")
+
+
+def gather_form(idx, q, table, skip, form):
+    """(idx, queries, table, mask, computes) in one of the forms the gather
+    wrappers take (no mask; a compute or skip mask as bool, int8 or uint8;
+    a table off 16-byte alignment under a bool compute mask); the mask
+    marks the same lanes in every polarity."""
+    import torch
+    if form == "none":
+        return idx, q, table, None, False
+    if form == "unaligned":
+        flat = torch.empty(table.numel() + 1, dtype=table.dtype,
+                           device=table.device)
+        flat[1:] = table.reshape(-1)
+        return idx, q, flat[1:].view(table.shape), skip == 0, True
+    polarity, dt = form.split("_")
+    mask = (skip == 0) if polarity == "compute" else (skip != 0)
+    return idx, q, table, mask.to(getattr(torch, dt)), polarity == "compute"
+
+
+def gather_plain(idx, q, table, mask, computes):
+    """The plain version on the arguments of a gather form."""
+    from repro_torch.kernels import ops, ref
+    return ref.gather_distance_ref(*ops.prepare_gather_distance(
+        idx, q, table, mask, computes))
+
+
 def check_gather_distance(rng, dev):
     import numpy as np
     import torch
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.kernels.gather_distance import gather_distance_cuda
     rows = []
     n_rows = 20_001
-    for M in (4, 100, 128):
-        for d in (128, 960, 100):
-            table = rng.normal(size=(n_rows, d)).astype(np.float32)
-            table[-1] = 0.0
-            idx = rng.integers(0, n_rows, size=(128, M)).astype(np.int32)
-            idx[2, ::3] = n_rows + 5                  # out of range
-            idx[2, 1::3] = -1
-            skip = (rng.random((128, M)) < 0.4).astype(np.int8)
-            skip[1] = 1                               # all skipped
-            q = rng.normal(size=(128, d)).astype(np.float32)
-            t = lambda a: torch.as_tensor(a, device=dev)   # noqa: E731
-            for masked in (False, True):
-                args = ops.prepare_gather_distance(
-                    t(idx), t(q), t(table), skip=t(skip) if masked else None)
-                kd = gather_distance_cuda(*args)
-                pd = ref.gather_distance_ref(args[0], args[2], args[3],
-                                             args[1])
-                torch.cuda.synchronize()
-                check(bit_equal(kd, pd), f"gather_distance M={M} d={d} "
-                      f"skip={masked}: not bit-equal with the plain version")
-                check(bool(torch.isinf(kd[2][::3]).all()) and
-                      bool(torch.isinf(kd[1]).all()) == masked,
-                      "gather_distance: skipped / out-of-range lanes wrong")
-                rows.append({"M": M, "d": d, "skip_mask": masked,
-                             "bit_equal": True, "max_abs_err": 0.0,
-                             "ms": cuda_times(
-                                 lambda: gather_distance_cuda(*args), 50)})
+    for M, d in GATHER_SHAPES:
+        table = rng.normal(size=(n_rows, d)).astype(np.float32)
+        table[-1] = 0.0
+        idx = rng.integers(0, n_rows, size=(128, M)).astype(np.int32)
+        idx[2, ::3] = n_rows + 5                  # out of range
+        idx[2, 1::3] = -1                         # negative
+        skip = (rng.random((128, M)) < 0.4).astype(np.int8)
+        skip[1] = 1                               # all skipped
+        skip[2] = 0                               # bad ids offered
+        q = rng.normal(size=(128, d)).astype(np.float32)
+        raw = [torch.as_tensor(a, device=dev)
+               for a in (idx, q, table, skip)]
+        for form in GATHER_FORMS:
+            args = gather_form(*raw, form)
+            kd = gather_distance_cuda(*ops.cuda_args_gather_distance(*args))
+            pd = gather_plain(*args)
+            torch.cuda.synchronize()
+            check(bit_equal(kd, pd), f"gather_distance M={M} d={d} "
+                  f"{form}: not bit-equal with the plain version")
+            check(bool(torch.isinf(kd[2][::3]).all()) and
+                  bool(torch.isinf(kd[2][1::3]).all()) and
+                  bool(torch.isinf(kd[1]).all()) == (form != "none"),
+                  f"gather_distance {form}: skipped / out-of-range "
+                  "lanes wrong")
+        args = ops.cuda_args_gather_distance(
+            *gather_form(*raw, "compute_bool"))
+        rows.append({"M": M, "d": d, "forms": list(GATHER_FORMS),
+                     "bit_equal": True, "max_abs_err": 0.0,
+                     "ms": cuda_times(
+                         lambda: gather_distance_cuda(*args), 50)})
     return rows
+
+
+PRUNE_FORMS = ("BL", "B", "BWM_view", "BL_expanded", "ed_BWM", "transposed",
+               "valid_bool", "valid_uint8")
+
+
+def prune_form(ed, dcq, b2, valid, form, W=4):
+    """(ed, dcq, bound2, valid) in one of the forms ``crouting_prune``
+    takes: [B], [B, L] (dense, transposed or a [B] bound expanded over L, as
+    the l2 engine hands bound2 over), [B, W, M] (a zero-stride view of a
+    [B, W] tensor, as the unfused engine hands dcq over), and bool, int8 or
+    uint8 masks."""
+    import torch
+    B, L = valid.shape
+    if form == "B":
+        dcq, b2 = dcq[:, 0].contiguous(), b2[:, 0].contiguous()
+    elif form == "BWM_view":
+        dcq = dcq.reshape(B, W, L // W)[:, :, 0].contiguous()[:, :, None] \
+            .expand(B, W, L // W)
+        b2 = b2[:, 0].contiguous()[:, None].expand(B, L)
+    elif form == "BL_expanded":
+        b2 = b2[:, 0].contiguous()[:, None].expand(B, L)
+    elif form == "ed_BWM":
+        ed = ed.reshape(B, W, L // W)
+    elif form == "transposed":
+        ed, dcq = ed.t().contiguous().t(), dcq.t().contiguous().t()
+    elif form == "valid_bool":
+        valid = valid != 0
+    elif form == "valid_uint8":
+        valid = valid.to(torch.uint8)
+    return ed, dcq, b2, valid
 
 
 def check_crouting_prune(rng, dev):
     import numpy as np
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.crouting_prune import crouting_prune_cuda
     rows = []
     for L in (128, 256):
@@ -494,23 +644,32 @@ def check_crouting_prune(rng, dev):
         ed = rng.uniform(0, 30, size=(B, L)).astype(np.float32)
         ed[:, ::13] = np.inf                          # adjacency pad slots
         dcq = rng.uniform(5, 30, size=(B, L)).astype(np.float32)
+        dcq[3] = 0.0                                  # NaN estimates
         b2 = rng.uniform(10, 900, size=(B, L)).astype(np.float32)
         b2[0] = np.inf                                # never prunes
         b2[1] = 0.0                                   # prunes every valid lane
         valid = (rng.random((B, L)) < 0.8).astype(np.int8)
-        args = [torch.as_tensor(a, device=dev) for a in (ed, dcq, b2, valid)]
-        ke, kp = crouting_prune_cuda(*args, 0.31)
-        pe, pp = ref.crouting_prune_ref(*args, 0.31)
-        torch.cuda.synchronize()
-        check(bit_equal(kp, pp) and bit_equal(ke, pe),
-              f"crouting_prune L={L}: not bit-equal with the plain version")
-        nan = torch.isnan(ke)
-        check(not bool(kp[0].any()) and
-              bool((kp[1] != 0).eq((args[3][1] != 0) & ~nan[1]).all()),
-              "crouting_prune: bound2 = +inf / 0 rows wrong")
-        rows.append({"L": L, "bit_equal": True, "max_abs_err": 0.0,
-                     "pruned": int(kp.sum()), "nan_estimates": int(nan.sum()),
-                     "ms": cuda_times(lambda: crouting_prune_cuda(*args, 0.31),
+        raw = [torch.as_tensor(a, device=dev) for a in (ed, dcq, b2, valid)]
+        for form in PRUNE_FORMS:
+            args = prune_form(*raw, form)
+            ke, kp = crouting_prune_cuda(*ops.cuda_args_crouting_prune(
+                *args, 0.31))
+            pe, pp = ref.crouting_prune_ref(*ops.prepare_crouting_prune(
+                *args, 0.31))
+            torch.cuda.synchronize()
+            check(kp.dtype == torch.bool and bit_equal(kp, pp)
+                  and bit_equal(ke, pe), f"crouting_prune L={L} {form}: not "
+                  "bit-equal with the plain version")
+            nan = torch.isnan(ke)
+            check(not bool(kp[0].any()) and
+                  bool(kp[1].eq((raw[3][1] != 0) & ~nan[1]).all()),
+                  f"crouting_prune {form}: bound2 = +inf / 0 rows wrong")
+        args = ops.cuda_args_crouting_prune(*prune_form(*raw, "BWM_view"),
+                                            0.31)
+        rows.append({"L": L, "forms": list(PRUNE_FORMS), "bit_equal": True,
+                     "max_abs_err": 0.0, "pruned": int(kp.sum()),
+                     "nan_estimates": int(nan.sum()),
+                     "ms": cuda_times(lambda: crouting_prune_cuda(*args),
                                       50)})
     return rows
 
@@ -863,7 +1022,7 @@ def retrieval_phase(dev, main_launches, captures):
 
 
 WRAPPERS = ("fused_expand", "pool_merge", "sq8_estimate",
-            "gather_distance_pruned", "crouting_prune")
+            "gather_distance_where", "crouting_prune")
 
 
 class CaptureInputs:
@@ -952,12 +1111,12 @@ def timed_row(name, kernel, plain, nbytes, flops, err, shape, flush=None,
     fp32 rate), on the same inputs."""
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / FP32_FLOPS * 1e3
+    device_ms, kept = kernel_device_ms(kernel, f"{name}_kernel", before=flush)
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": KERNEL_FILES[name], "max_abs_err": err,
             "ms": cuda_times(kernel, 200, flush),
-            "device_ms": kernel_device_ms(kernel, f"{name}_kernel",
-                                          before=flush),
+            "device_ms": device_ms, "device_kept": kept,
             "plain_ms": cuda_times(plain, 50, flush),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -979,35 +1138,24 @@ def operand_bytes(x):
 def wrapper_row(call, flush, reps: int = 50, tries: int = 3):
     """All device time and kernels of one wrapper call (``call``), from
     torch.profiler behind the L2 flush; the flush's own kernels (named by a
-    profile of the flush alone) are left out.  A trace that kept fewer
-    kernels than calls (the trace drops launches, see kernel_device_ms) is
-    taken again, up to ``tries`` times."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def kernels(fn):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                     acc_events=True) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        return [(e.name, getattr(e, "device_time", None)
-                 or getattr(e, "cuda_time", 0)) for e in prof.events()
-                if "CUDA" in str(e.device_type)]
-
-    flush_names = {n for n, _ in kernels(flush)}
+    profile of the flush alone) are left out.  A window that kept fewer
+    kernels than calls is taken again, up to ``tries`` windows, and the
+    fullest is used; ``wrapper_kept``: its kernels over the calls made."""
+    flush_names = {n for n, _ in traced_kernels(flush, reps)}
 
     def both():
         flush()
         call()
+    ours = []
     for _ in range(tries):
-        ours = [(n, us) for n, us in kernels(both) if n not in flush_names]
+        got = [(n, us) for n, us in traced_kernels(both, reps)
+               if n not in flush_names]
+        ours = max(ours, got, key=len)
         if len(ours) >= reps:
             break
     return {"wrapper_device_ms": sum(us for _, us in ours) / reps / 1e3,
             "wrapper_launches": len(ours) / reps,
+            "wrapper_kept": f"{len(ours)}/{reps}",
             "wrapper_kernels": sorted({n[:60] for n, _ in ours})}
 
 
@@ -1041,19 +1189,18 @@ def time_fused_expand(capture, flush):
                           "pruned_lanes": int(kp.sum()),
                           "kernel_prunes": pe is not None}, flush)
     row.update(wrapper_row(lambda: ops.fused_expand(*a, **kw), flush))
-    row["empty_launch_ms"] = kernel_device_ms(
+    row["empty_launch_ms"], row["empty_launch_kept"] = kernel_device_ms(
         lambda: FE.empty_launch(B, L), "fused_expand_empty", before=flush)
     # round trip 1 alone: the same call with every lane masked reads no row
     none = ops.cuda_args_fused_expand(*a, **dict(
         kw, eval_mask=torch.zeros((B, L), dtype=torch.bool, device=q.device)))
-    row["no_rows_device_ms"] = kernel_device_ms(
+    row["no_rows_device_ms"], row["no_rows_kept"] = kernel_device_ms(
         lambda: FE.fused_expand_cuda(*none), "fused_expand_kernel",
         before=flush)
     return row
 
 
 def time_pool_merge(capture):
-    import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.pool_merge import choose_variant, pool_merge_cuda
     a, _ = capture.get("pool_merge")
@@ -1105,55 +1252,94 @@ def time_sq8_distance(capture, flush):
                           "code_rows": args[3].shape[0],
                           "evaluated_lanes": evaluated}, flush)
     row.update(wrapper_row(lambda: ops.sq8_estimate(*a, **kw), flush))
-    row["empty_launch_ms"] = kernel_device_ms(
+    row["empty_launch_ms"], row["empty_launch_kept"] = kernel_device_ms(
         lambda: SK.empty_launch(B, L), "sq8_distance_empty", before=flush)
     # round trip 1 alone: the same call with every lane masked reads no row
     none = (args[0], q, torch.zeros((B, L), dtype=torch.bool,
                                     device=q.device), *args[3:])
-    row["no_rows_device_ms"] = kernel_device_ms(
+    row["no_rows_device_ms"], row["no_rows_kept"] = kernel_device_ms(
         lambda: SK.sq8_distance_cuda(*none), "sq8_distance_kernel",
         before=flush)
     return row
 
 
 def time_gather_distance(capture, width, flush, what):
-    from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.gather_distance import gather_distance_cuda
-    a, _ = capture.get("gather_distance_pruned", width)
-    args = ops.prepare_gather_distance(a[0], a[2], a[3], skip=a[1])
-    idx, skip, q, table = args
-    B, M = idx.shape
+    import torch
+    from repro_torch.kernels import gather_distance as GD
+    from repro_torch.kernels import ops
+    a, kw = capture.get("gather_distance_where", width)
+    ids, compute, q, table = a
+    args = ops.cuda_args_gather_distance(ids, q, table, compute, True)
+    B, M = ids.shape
     d = q.shape[1]
-    kd = gather_distance_cuda(*args)
-    pd = ref.gather_distance_ref(idx, q, table, skip)
+    kd = GD.gather_distance_cuda(*args)
+    pd = gather_plain(ids, q, table, compute, True)
     check(bit_equal(kd, pd), f"timing: gather_distance ({what}) not "
           "bit-equal on captured inputs")
-    computed = int((skip == 0).sum())
-    # bytes: computed rows + idx (4 B) and skip (1 B) a lane + the queries
-    # in; dist2 (4 B) out
-    nbytes = computed * d * 4 + B * M * 9 + B * d * 4
-    return timed_row("gather_distance", lambda: gather_distance_cuda(*args),
-                     lambda: ref.gather_distance_ref(idx, q, table, skip),
-                     nbytes, computed * 3 * d, 0.0,
-                     {"call": what, "B": B, "M": M, "d": d,
-                      "computed_lanes": computed}, flush)
+    computed = int(torch.isfinite(pd).sum())
+    # bytes: computed rows + ids and the compute mask as handed over + the
+    # queries in; dist2 (4 B a lane) out
+    nbytes = (computed * d * 4 + operand_bytes(args[0])
+              + operand_bytes(args[3]) + B * d * 4 + B * M * 4)
+    row = timed_row("gather_distance", lambda: GD.gather_distance_cuda(*args),
+                    lambda: gather_plain(ids, q, table, compute, True),
+                    nbytes, computed * 3 * d, 0.0,
+                    {"call": what, "B": B, "M": M, "d": d,
+                     "computed_lanes": computed}, flush)
+    row.update(wrapper_row(lambda: ops.gather_distance_where(*a, **kw),
+                           flush))
+    row["empty_launch_ms"], row["empty_launch_kept"] = kernel_device_ms(
+        lambda: GD.gather_distance_empty_launch(B, M),
+        "gather_distance_empty", before=flush)
+    # round trip 1 alone: the same call with every lane masked reads no row
+    none = ops.cuda_args_gather_distance(
+        ids, q, table, torch.zeros((B, M), dtype=torch.bool,
+                                   device=q.device), True)
+    row["no_rows_device_ms"], row["no_rows_kept"] = kernel_device_ms(
+        lambda: GD.gather_distance_cuda(*none), "gather_distance_kernel",
+        before=flush)
+    return row
 
 
 def time_crouting_prune(capture):
+    """On the captured unfused tile, with no L2 flush: the operands were
+    just written by the hop loop."""
+    from repro_torch.kernels import crouting_prune as CP
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.crouting_prune import crouting_prune_cuda
     a, kw = capture.get("crouting_prune")
-    args = ops.prepare_crouting_prune(*a, **kw)
-    B, L = args[0].shape
-    ke, kp = crouting_prune_cuda(*args)
-    pe, pp = ref.crouting_prune_ref(*args)
+    args = ops.cuda_args_crouting_prune(*a, **kw)
+    plain = ops.prepare_crouting_prune(*a, **kw)
+    ed, dcq, bound2, valid, _ = args
+    B, L = valid.shape
+    ke, kp = CP.crouting_prune_cuda(*args)
+    pe, pp = ref.crouting_prune_ref(*plain)
     check(bit_equal(ke, pe) and bit_equal(kp, pp),
           "timing: crouting_prune not bit-equal on captured inputs")
-    # ed, dcq, bound2 (4 B) and valid (1 B) in; est2 (4 B), prune (1 B) out
-    return timed_row("crouting_prune", lambda: crouting_prune_cuda(*args),
-                     lambda: ref.crouting_prune_ref(*args), B * L * 18,
-                     B * L * 7, 0.0,
-                     {"B": B, "L": L, "pruned_lanes": int(kp.sum())})
+    # bytes: ed, dcq, bound2 and valid as handed over (dcq [B, W] over M,
+    # bound2 [B] over L under l2) in; est2 (4 B) and prune (1 B) a lane out
+    nbytes = sum(operand_bytes(x) for x in (ed, dcq, bound2, valid)) \
+        + B * L * 5
+    row = timed_row("crouting_prune", lambda: CP.crouting_prune_cuda(*args),
+                    lambda: ref.crouting_prune_ref(*plain), nbytes,
+                    B * L * 7, 0.0,
+                    {"B": B, "L": L, "pruned_lanes": int(kp.sum()),
+                     "operands": [list(x.shape) for x in (ed, dcq, bound2)]})
+    row.update(wrapper_row(lambda: ops.crouting_prune(*a, **kw),
+                           lambda: None))
+    row["empty_launch_ms"], row["empty_launch_kept"] = kernel_device_ms(
+        lambda: CP.crouting_prune_empty_launch(B, L), "crouting_prune_empty")
+    # the same kernel on dense [B, L] copies of ed, dcq and bound2: what
+    # reading them through their strides costs
+    dense = ops.cuda_args_crouting_prune(
+        *(x.reshape(B, -1).expand(B, L).contiguous() for x in a[:3]),
+        *a[3:], **kw)
+    de, dp = CP.crouting_prune_cuda(*dense)
+    check(bit_equal(de, pe) and bit_equal(dp, pp),
+          "timing: crouting_prune on dense operands not bit-equal")
+    row["dense_operands_device_ms"], row["dense_operands_kept"] = \
+        kernel_device_ms(lambda: CP.crouting_prune_cuda(*dense),
+                         "crouting_prune_kernel")
+    return row
 
 
 def time_l2_distance(q, x, flush=None):
@@ -1214,7 +1400,7 @@ def l2_crossover(cands, queries, flush):
             for v in ("stream", "tiled"):
                 fn = lambda: run(q, x, v)              # noqa: E731
                 row[f"{v}_ms"] = cuda_times(fn, 100, before)
-                row[f"{v}_device_ms"] = kernel_device_ms(
+                row[f"{v}_device_ms"], row[f"{v}_kept"] = kernel_device_ms(
                     fn, "l2_distance_kernel", before=before)
             rows.append(row)
     return rows
@@ -1230,7 +1416,7 @@ def timing_phase(captures, main_launches, cands, queries):
     w4, w1 = captures[("W4", "fused")], captures[("W1", "fused")]
     both, unf = captures[("W4_both", "fused")], captures[("W4", "unfused")]
     W, efs = SPECS["W4_both"]["beam_width"], SPECS["W4_both"]["efs"]
-    L = unf.get("crouting_prune")[0][0].shape[1]
+    L = unf.get("crouting_prune")[0][3].shape[1]
     # 64 MB written between timed launches evicts the 50 MB L2: the hop
     # loop's row reads are first touches
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
@@ -1259,8 +1445,8 @@ def timing_phase(captures, main_launches, cands, queries):
         row = dict(rs[0])
         row["launches"] = main_launches[name]
         row["other_shapes"] = [
-            {k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms",
-                               "bound_ms", "library_ms")}
+            {k: r[k] for k in ("shape", "ms", "device_ms", "device_kept",
+                               "plain_ms", "bound_ms", "library_ms")}
             for r in rs[1:]]
         table.append(row)
     return table
@@ -1275,13 +1461,15 @@ def profile_batch(idx, queries, spec):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        _pad_launches(TRACE_PAD_LAUNCHES)
         t0 = time.perf_counter()
         idx.search(queries[:BATCH], spec)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+        _pad_launches(TRACE_PAD_LAUNCHES)
     rows = []
     for ev in prof.key_averages():
-        if "CUDA" not in str(ev.device_type):
+        if "CUDA" not in str(ev.device_type) or PAD_KERNEL in ev.key:
             continue                            # kernels only, not host ops
         dt = getattr(ev, "self_device_time_total", None)
         if dt is None:

@@ -18,8 +18,8 @@ restructured as ONE loop over a whole query batch (DESIGN.md §3).
       conditional row load + exact distance) and the ``pool_merge`` kernel
       (the counterpart of ``"pallas"``);
     - ``"unfused"`` — the ``crouting_prune`` kernel, then
-      ``gather_distance`` under the prune mask, then ``pool_merge`` (the
-      counterpart of ``"pallas_unfused"``).
+      ``gather_distance`` on the lanes left to compute, then ``pool_merge``
+      (the counterpart of ``"pallas_unfused"``).
   On CPU tensors the kernel wrappers run their plain versions.
 
 Two-stage quantized distances (``SearchSpec.estimate="sq8"|"both"``): the
@@ -296,13 +296,14 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
     def _exact_rerank(ids, mask):
         """Stage 2: exact ranking distances for the pool entries in
         ``mask``; the fp32 rows are read here and only here on the sq8
-        path, and other lanes report +inf."""
-        idx = torch.where(mask, ids, n)
+        path, and other lanes report +inf.  ``ids`` lie in [0, n] (n: the
+        pad row)."""
         if kernels:
-            eu2 = ops.gather_distance_pruned(idx, ~mask, queries, vecs)
+            # the kernel takes the mask as it is and skips the other lanes
+            eu2 = ops.gather_distance_where(ids, mask, queries, vecs)
         else:
-            eu2 = l2sq_rows(queries, vecs[idx.long()])
-        r = _eu2_to_rank(eu2, nq[:, None], norms[idx.long()], metric)
+            eu2 = l2sq_rows(queries, vecs[torch.where(mask, ids, n).long()])
+        r = _eu2_to_rank(eu2, nq[:, None], norms[ids.long()], metric)
         return torch.where(mask, r, inf)
 
     if cfg.use_hierarchy:
@@ -393,8 +394,9 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
             first = lane_ok
 
         dcq_eu = _rank_to_eu(dc, nq[:, None], norms[cl], metric)      # [B, W]
-        # per lane as a [B, W, M] view: the fused kernel reads it through
-        # its zero stride; the router paths take the [B, L] copy
+        # per lane as a [B, W, M] view: the fused_expand and crouting_prune
+        # kernels read it through its zero stride; the router paths take
+        # the [B, L] copy
         dcq_w = dcq_eu[:, :, None].expand(B, W, M)
         nx = norms[nbl]                                               # [B, L]
         if metric == "l2":
@@ -418,8 +420,8 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         if not prunes or kernel_prunes:
             prune = torch.zeros_like(first)
         elif engine == "unfused" and rt.kernel_estimate:
-            prune = ops.crouting_prune(ed, dcq_w.reshape(B, L), bound2,
-                                       try_prune, ct_eff)[1] != 0
+            prune = ops.crouting_prune(ed, dcq_w, bound2, try_prune,
+                                       ct_eff)[1]
         else:
             ctx = RouterContext(
                 arrays=arrays, queries=queries, nq=nq, c=c, dc=dc, nbrs=nbrs,
@@ -476,8 +478,7 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
                     prune = prune_k
                     compute = compute & ~prune
             elif engine == "unfused":
-                d2eu = ops.gather_distance_pruned(
-                    torch.where(compute, nbrs, n), ~compute, queries, vecs)
+                d2eu = ops.gather_distance_where(nbrs, compute, queries, vecs)
             else:
                 d2eu = l2sq_rows(queries, vecs[torch.where(compute, nbl, n)])
             exact = _eu2_to_rank(d2eu, nq[:, None], nx, metric)

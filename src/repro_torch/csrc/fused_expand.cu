@@ -56,6 +56,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lanes.cuh"
 #include "warp_rows.cuh"
 
 namespace {
@@ -68,27 +69,10 @@ constexpr int kWarpsPerCta = 4;
 constexpr int kMaxPasses = 8;          // query elements held in registers
 enum { kPruneNone = 0, kPruneAll = 1, kPruneMask = 2 };
 
-// Rows a group keeps in flight: kSpan row elements a thread, at least one.
-__host__ __device__ constexpr int rows_for(int np) {
-  return kSpan / np > 0 ? kSpan / np : 1;
-}
-
-// A float operand read at lane (b, l = w * m + i) through its strides;
-// shift = log2(m) when m is a power of two (no division), else -1.
-struct LaneF32 {
-  const float* p;
-  long long sb, sw, sm;
-  int m, shift;
-  __device__ __forceinline__ float at(int b, int l) const {
-    const int w = shift >= 0 ? l >> shift : l / m;
-    return __ldg(p + b * sb + w * sw + (l - w * m) * sm);
-  }
-};
-
 struct ExpandArgs {
   const int32_t* nbrs;
   const float* queries;
-  LaneF32 ed, dcq, bound2;
+  lanes::LaneF32 ed, dcq, bound2;
   const uint8_t* eval;        // null: every lane
   const uint8_t* pe;          // read when pe_mode == kPruneMask
   const float* table;
@@ -104,7 +88,6 @@ struct ExpandArgs {
 template <int NP, bool kVec>
 __global__ void __launch_bounds__(kWarpsPerCta * kWarp)
 fused_expand_kernel(const ExpandArgs a) {
-  constexpr int R = rows_for(NP);
   const int t = threadIdx.x % kWarp;
   const int gw = blockIdx.x * kWarpsPerCta + threadIdx.x / kWarp;
   const int b = gw / a.chunks;
@@ -132,51 +115,14 @@ fused_expand_kernel(const ExpandArgs a) {
   if (one_sweep) warp_rows::load_f32<NP, kVec>(qv, q, 0, a.d, t);
 
   const bool ok = nbr >= 0 && nbr < a.n_rows;
-  float est2 = __fsub_rn(__fadd_rn(__fmul_rn(e_, e_), __fmul_rn(c_, c_)),
-                         __fmul_rn(__fmul_rn(__fmul_rn(2.0f, e_), c_), a.ct));
-  est2 = est2 < 0.0f ? 0.0f : est2;                      // NaN stays NaN
+  const float est2 = lanes::edge_est2(e_, c_, a.ct);   // NaN stays NaN
   const bool prune = ok && pe && est2 >= b2;
   if (live) a.prune[o] = prune ? 1 : 0;
   const unsigned mask = __ballot_sync(kFull, ok && ev && !prune);
-  float mine = __int_as_float(0x7f800000);
 
-  // round trip 2, R lanes at a time: every slot loads a row (a lane that
-  // fetches nothing re-reads the group's first fetched row, lines already
-  // in flight), so the R loads issue together and the group runs with no
-  // branch; only fetching lanes keep their sums
-#pragma unroll
-  for (int g0 = 0; g0 < kSpan; g0 += R) {
-    const unsigned gm = (mask >> g0) & ((1u << R) - 1u);
-    if (gm == 0) continue;                               // warp-uniform
-    const int first = __shfl_sync(kFull, nbr, g0 + __ffs(gm) - 1);
-    int id[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int own = __shfl_sync(kFull, nbr, g0 + r);
-      id[r] = (gm >> r) & 1u ? own : first;
-    }
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-    for (int base = 0; base < a.d; base += NP * kPass) {
-      if (!one_sweep) warp_rows::load_f32<NP, kVec>(qv, q, base, a.d, t);
-      float4 x[R][NP];
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        warp_rows::load_f32<NP, kVec>(
-            x[r], a.table + static_cast<size_t>(id[r]) * a.d, base, a.d, t);
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        acc[r] = warp_rows::l2sq_passes<NP>(acc[r], qv, x[r]);
-      }
-    }
-    warp_rows::warp_sum_rows<R>(acc);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (t == g0 + r && ((gm >> r) & 1u)) mine = acc[r];
-    }
-  }
+  // round trip 2: the fetched lanes' rows, every load of a group at once
+  const float mine = warp_rows::l2sq_lanes<kSpan, NP, kVec>(
+      mask, nbr, q, qv, one_sweep, a.table, a.d, t);
   if (live) a.dist[o] = mine;
 }
 
@@ -200,24 +146,16 @@ void launch_np(const ExpandArgs& a, int vec4, cudaStream_t s) {
   }
 }
 
-int log2_or_minus1(long long m) {
-  if (m <= 0 || (m & (m - 1)) != 0) return -1;
-  int k = 0;
-  while ((1LL << k) < m) ++k;
-  return k;
-}
-
 }  // namespace
 
-// Launch on `stream`; returns a cudaError_t (0 on success).  `lanes` holds
-// (stride_b, stride_w, stride_m, m) for ed, dcq and bound2 in turn: lane
-// (b, l) of an operand is p[b*sb + (l/m)*sw + (l%m)*sm].  `eval_mask`
-// (bytes, may be null: every lane) and `prune_eligible` (bytes, read when
-// prune_mode == 2; 0: no lane prunes, 1: every lane may) are [B, L]
-// contiguous.  `vec4`: d % 4 == 0 with 16-byte aligned table and queries.
+// Launch on `stream`; returns a cudaError_t (0 on success).  `lane_strides`
+// holds (stride_b, stride_w, stride_m, m) for ed, dcq and bound2 in turn
+// (lanes.cuh).  `eval_mask` (bytes, may be null: every lane) and
+// `prune_eligible` (bytes, read when prune_mode == 2; 0: no lane prunes,
+// 1: every lane may) are [B, L] contiguous.  `vec4`: d % 4 == 0 with 16-byte aligned table and queries.
 extern "C" int fused_expand_launch(
     const void* nbrs, const void* queries, const void* ed, const void* dcq,
-    const void* bound2, const long long* lanes, const void* eval_mask,
+    const void* bound2, const long long* lane_strides, const void* eval_mask,
     const void* prune_eligible, int prune_mode, const void* table,
     long long n_rows, void* dist_out, void* prune_out, int B, int L, int d,
     float cos_theta, int vec4, void* stream) {
@@ -228,14 +166,10 @@ extern "C" int fused_expand_launch(
   ExpandArgs a;
   a.nbrs = static_cast<const int32_t*>(nbrs);
   a.queries = static_cast<const float*>(queries);
-  const void* side[3] = {ed, dcq, bound2};
-  LaneF32* dst[3] = {&a.ed, &a.dcq, &a.bound2};
-  for (int i = 0; i < 3; ++i) {
-    const long long m = lanes[4 * i + 3];
-    if (m <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    *dst[i] = LaneF32{static_cast<const float*>(side[i]), lanes[4 * i],
-                      lanes[4 * i + 1], lanes[4 * i + 2],
-                      static_cast<int>(m), log2_or_minus1(m)};
+  if (!lanes::make_lane(a.ed, ed, lane_strides) ||
+      !lanes::make_lane(a.dcq, dcq, lane_strides + 4) ||
+      !lanes::make_lane(a.bound2, bound2, lane_strides + 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   a.eval = static_cast<const uint8_t*>(eval_mask);
   a.pe = static_cast<const uint8_t*>(prune_eligible);

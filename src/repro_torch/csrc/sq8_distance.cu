@@ -60,11 +60,6 @@ constexpr int kSpan = 4;               // lanes a warp owns
 constexpr int kWarpsPerCta = 4;
 constexpr int kMaxPasses = 4;          // q, lo, scale, eps in registers
 
-// Rows a group keeps in flight: kSpan row elements a thread, at least one.
-__host__ __device__ constexpr int rows_for(int np) {
-  return kSpan / np > 0 ? kSpan / np : 1;
-}
-
 struct Sq8Args {
   const int32_t* nbrs;
   const float* queries;
@@ -150,7 +145,7 @@ __device__ __forceinline__ void finish_rows(Sq8Acc (&acc)[R],
 template <int NP, bool kVec>
 __global__ void __launch_bounds__(kWarpsPerCta * kWarp)
 sq8_distance_kernel(const Sq8Args a) {
-  constexpr int R = rows_for(NP);
+  constexpr int R = warp_rows::rows_for(kSpan, NP);
   const int t = threadIdx.x % kWarp;
   const int gw = blockIdx.x * kWarpsPerCta + threadIdx.x / kWarp;
   const int b = gw / a.chunks;

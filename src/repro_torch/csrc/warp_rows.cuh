@@ -1,6 +1,6 @@
 // warp_rows.cuh: the per-row reduction the port's row-reading kernels share.
 //
-// One warp reads one row.  Lane t of the warp holds the elements
+// A warp reads a row this way.  Lane t of the warp holds the elements
 // 128*j + 4*t + c (c = 0..3) of pass j, accumulates its terms in (j, c)
 // order starting from 0, and the 32 lane partials are then summed with a
 // __shfl_xor_sync butterfly (strides 16, 8, 4, 2, 1).  Every product and
@@ -9,11 +9,11 @@
 // (warp_order_sum) adds in exactly this order, so the kernels' row sums are
 // bit-equal with the plain versions'.
 //
-// Used by gather_distance.cu (l2sq_partial, one row at a time) and by
-// fused_expand.cu and sq8_distance.cu (the multi-row helpers below: a warp
-// reads the rows of its lanes R at a time, so that R rows' reads are in
-// flight together; each row keeps the element mapping and butterfly order
-// above).  kernels/build.py hashes this
+// Used by fused_expand.cu, gather_distance.cu and sq8_distance.cu: a warp
+// owns a few lanes of a query row and reads their rows R at a time, so that
+// R rows' reads are in flight together; each row keeps the element mapping
+// and butterfly order above (l2sq_lanes is the whole fp32 row round trip
+// of fused_expand and gather_distance).  kernels/build.py hashes this
 // header into the library name of every source that includes it.
 
 #pragma once
@@ -32,45 +32,15 @@ __device__ __forceinline__ float add_sq(float acc, float q, float x) {
   return __fadd_rn(acc, __fmul_rn(df, df));
 }
 
-// Lane t's partial of |q - row|^2 (q in shared memory).  Coalesced float4
-// loads when vec4 (d % 4 == 0 and a 16-byte aligned table), else scalar.
-__device__ __forceinline__ float l2sq_partial(const float* __restrict__ row,
-                                              const float* q_s, int d,
-                                              int vec4, int t) {
-  float acc = 0.0f;
-  for (int base = 0; base < d; base += kPass) {
-    const int e0 = base + 4 * t;
-    if (vec4) {
-      if (e0 < d) {
-        const float4 x = __ldg(reinterpret_cast<const float4*>(row + e0));
-        acc = add_sq(acc, q_s[e0], x.x);
-        acc = add_sq(acc, q_s[e0 + 1], x.y);
-        acc = add_sq(acc, q_s[e0 + 2], x.z);
-        acc = add_sq(acc, q_s[e0 + 3], x.w);
-      }
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (e0 + c < d) acc = add_sq(acc, q_s[e0 + c], __ldg(row + e0 + c));
-      }
-    }
-  }
-  return acc;
+// Rows a group keeps in flight when a warp owns `span` lanes and a row takes
+// `np` passes: span row elements a thread, at least one row.
+__host__ __device__ constexpr int rows_for(int span, int np) {
+  return span / np > 0 ? span / np : 1;
 }
 
-// Sum of the 32 lane partials, left in every lane.
-__device__ __forceinline__ float warp_sum(float acc) {
-#pragma unroll
-  for (int off = kWarp / 2; off > 0; off >>= 1) {
-    acc = __fadd_rn(acc, __shfl_xor_sync(kFull, acc, off));
-  }
-  return acc;
-}
-
-// --- several rows at once ----------------------------------------------------
-
-// warp_sum of R rows, their shuffles interleaved with no branch between
-// them (each row's order is warp_sum's).
+// The sum of the 32 lane partials of each of R rows, left in every lane:
+// the butterfly above, the R rows' shuffles interleaved with no branch
+// between them.
 template <int R>
 __device__ __forceinline__ void warp_sum_rows(float (&acc)[R]) {
 #pragma unroll
@@ -146,6 +116,57 @@ __device__ __forceinline__ float l2sq_passes(float acc, const float4 (&q)[NP],
     }
   }
   return acc;
+}
+
+// Round trip 2 of a warp that owns kSpan consecutive lanes (thread s <
+// kSpan holds lane s's row id in `id`): |q - table[id]|^2 for every lane
+// whose bit s is set in `fetch`, returned in thread s; +inf in every other
+// thread.  The lanes go R = rows_for(kSpan, NP) at a time; every slot of a
+// group loads a row (a lane that fetches nothing re-reads the group's first
+// fetched row, lines already in flight), so the R loads issue together and
+// the group runs with no branch.  `qv` holds the query's passes 0 .. NP-1
+// when `one_sweep`; otherwise each sweep of NP passes reloads them from q.
+// float4 loads when kVec (d % 4 == 0, table and q 16-byte aligned).
+template <int kSpan, int NP, bool kVec>
+__device__ __forceinline__ float l2sq_lanes(unsigned fetch, int id,
+                                            const float* __restrict__ q,
+                                            float4 (&qv)[NP], bool one_sweep,
+                                            const float* __restrict__ table,
+                                            int d, int t) {
+  constexpr int R = rows_for(kSpan, NP);
+  float mine = __int_as_float(0x7f800000);
+#pragma unroll
+  for (int g0 = 0; g0 < kSpan; g0 += R) {
+    const unsigned gm = (fetch >> g0) & ((1u << R) - 1u);
+    if (gm == 0) continue;                               // warp-uniform
+    const int first = __shfl_sync(kFull, id, g0 + __ffs(gm) - 1);
+    int rid[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int own = __shfl_sync(kFull, id, g0 + r);
+      rid[r] = (gm >> r) & 1u ? own : first;
+    }
+    float acc[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+    for (int base = 0; base < d; base += NP * kPass) {
+      if (!one_sweep) load_f32<NP, kVec>(qv, q, base, d, t);
+      float4 x[R][NP];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        load_f32<NP, kVec>(x[r], table + static_cast<size_t>(rid[r]) * d,
+                           base, d, t);
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = l2sq_passes<NP>(acc[r], qv, x[r]);
+    }
+    warp_sum_rows<R>(acc);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (t == g0 + r && ((gm >> r) & 1u)) mine = acc[r];
+    }
+  }
+  return mine;
 }
 
 }  // namespace warp_rows

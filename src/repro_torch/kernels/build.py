@@ -134,3 +134,21 @@ def check_args(kernel: str, dev, args) -> None:
                 f"{'' if shape is None else f' of shape {tuple(shape)}'} on "
                 f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device} "
                 f"(contiguous={t.is_contiguous()})")
+
+
+_MASK_DTYPES = ("bool", "int8", "uint8")
+
+
+def check_mask(kernel: str, name: str, x, shape, dev):
+    """Raise ``ValueError`` unless ``x`` is None or a contiguous one-byte
+    mask (bool, int8 or uint8) of ``shape`` on ``dev``, as the kernels read
+    their masks; returns ``x``."""
+    if x is not None and (str(x.dtype).removeprefix("torch.") not in
+                          _MASK_DTYPES or x.device != dev
+                          or tuple(x.shape) != tuple(shape)
+                          or not x.is_contiguous()):
+        raise ValueError(
+            f"{kernel}: {name} must be a contiguous {list(shape)} bool, int8 "
+            f"or uint8 tensor on {dev}, got {x.dtype} {tuple(x.shape)} on "
+            f"{x.device} (contiguous={x.is_contiguous()})")
+    return x

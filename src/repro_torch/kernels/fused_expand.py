@@ -25,7 +25,6 @@ _ARGTYPES = ([_P] * 5 + [ctypes.POINTER(ctypes.c_longlong), _P, _P, _I, _P,
                          ctypes.c_longlong, _P, _P, _I, _I, _I,
                          ctypes.c_float, _I, _P])
 _PRUNE_NONE, _PRUNE_ALL, _PRUNE_MASK = 0, 1, 2
-_MASK_DTYPES = (torch.bool, torch.int8, torch.uint8)
 
 
 def _lib():
@@ -35,12 +34,15 @@ def _lib():
     return fn
 
 
-def lane_strides(x, B: int, L: int):
+def lane_strides(x, B: int, L: int, kernel: str = "fused_expand_cuda"):
     """(stride_b, stride_w, stride_m, m) that read lane (b, l) of a [B]
     operand (broadcast over lanes), a [B, L] one, or a [B, W, M] one with W*M
-    == L (e.g. a [B, W] tensor expanded over M with a zero stride)."""
+    == L (e.g. a [B, W] tensor expanded over M with a zero stride), as
+    ``csrc/lanes.cuh`` reads it.  ``fused_expand`` and ``crouting_prune``
+    take their side operands this way; ``kernel`` names the caller in the
+    error."""
     if x.dtype != torch.float32:
-        raise ValueError(f"fused_expand_cuda: side operands must be float32, "
+        raise ValueError(f"{kernel}: side operands must be float32, "
                          f"got {x.dtype}")
     if x.ndim == 1 and x.shape[0] == B:
         return (x.stride(0), 0, 0, L)
@@ -48,19 +50,9 @@ def lane_strides(x, B: int, L: int):
         return (x.stride(0), 0, x.stride(1), L)
     if x.ndim == 3 and x.shape[0] == B and x.shape[1] * x.shape[2] == L:
         return (x.stride(0), x.stride(1), x.stride(2), x.shape[2])
-    raise ValueError(f"fused_expand_cuda: a side operand of shape "
+    raise ValueError(f"{kernel}: a side operand of shape "
                      f"{tuple(x.shape)} is not [B], [B, L] or [B, W, M] "
                      f"with B={B}, L={L}")
-
-
-def _mask(x, name, B, L, dev):
-    if x is not None and (x.dtype not in _MASK_DTYPES or x.device != dev
-                          or tuple(x.shape) != (B, L)
-                          or not x.is_contiguous()):
-        raise ValueError(f"fused_expand_cuda: {name} must be a contiguous "
-                         f"[{B}, {L}] bool or int8 tensor on {dev}, got "
-                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    return x
 
 
 def launch_args(nbrs, queries, ed, dcq, bound2, cos_theta: float, table,
@@ -81,8 +73,10 @@ def launch_args(nbrs, queries, ed, dcq, bound2, cos_theta: float, table,
                          f"{dev}")
     lanes = (ctypes.c_longlong * 12)(
         *[s for x in side for s in lane_strides(x, B, L)])
-    eval_mask = _mask(eval_mask, "eval_mask", B, L, dev)
-    prune_eligible = _mask(prune_eligible, "prune_eligible", B, L, dev)
+    eval_mask = build.check_mask("fused_expand_cuda", "eval_mask",
+                                 eval_mask, (B, L), dev)
+    prune_eligible = build.check_mask("fused_expand_cuda", "prune_eligible",
+                                      prune_eligible, (B, L), dev)
     if not prunes and prune_eligible is not None:
         raise ValueError("fused_expand_cuda: prunes=False takes no "
                          "prune_eligible mask")

@@ -2,23 +2,25 @@
 
 The counterpart of ``repro.kernels.ops``.  Each wrapper normalises shapes
 and dtypes, applies the masking contract, and then dispatches on where its
-tensors lie (``fused_expand`` and ``sq8_estimate`` leave the range check
-and the mask forms to their kernels, so that on the search loop's tensors
-nothing runs before the launch):
+tensors lie (``fused_expand``, ``sq8_estimate``, the gather wrappers and
+``crouting_prune`` leave the range check, strided operands and the mask
+forms to their kernels, so that on the search loop's tensors nothing runs
+before the launch but the output allocations):
 
 * CUDA tensors launch the hand-written kernel (``csrc/*.cu``, built with
   nvcc on first use) and add one to the wrapper's launch count.  A failed
   build or launch raises; nothing falls back to the plain version.
 * CPU tensors run the plain PyTorch version (``repro_torch.kernels.ref``).
 
-``LAUNCHES`` counts launches per kernel (``gather_distance`` serves both
-gather wrappers), so a run can show that the main path went through the
-kernels (``chip_smoke.py`` resets and reads it).
+``LAUNCHES`` counts launches per kernel (``gather_distance`` serves the
+three gather wrappers), so a run can show that the main path went through
+the kernels (``chip_smoke.py`` resets and reads it).
 """
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
@@ -44,6 +46,11 @@ def _lanes(x, B, L, dtype):
 
 def _f32(x):
     return x.to(torch.float32).contiguous()
+
+
+def _f32_scalar(x) -> float:
+    """A Python scalar rounded to f32, as the kernels take it."""
+    return float(np.float32(x))
 
 
 def _mask_bytes(x):
@@ -74,8 +81,8 @@ def prepare_fused_expand(nbrs, queries, ed, dcq, bound2, cos_theta, table,
     return (nbrs, queries.to(torch.float32).contiguous(),
             _lanes(ed, B, L, torch.float32), _lanes(dcq, B, L, torch.float32),
             _lanes(bound2, B, L, torch.float32),
-            float(torch.tensor(float(cos_theta), dtype=torch.float32)),
-            table, eval_mask.to(torch.int8).contiguous(),
+            _f32_scalar(cos_theta), table,
+            eval_mask.to(torch.int8).contiguous(),
             prune_eligible.to(torch.int8).contiguous())
 
 
@@ -182,31 +189,46 @@ def sq8_estimate(nbrs, queries, eval_mask, codes, lo, scale, eps):
         nbrs, queries, eval_mask, codes, lo, scale, eps))
 
 
-def prepare_gather_distance(indices, queries, table, skip=None):
-    """The arguments the gather wrappers hand to the kernel: int32 ids, an
-    int8 skip mask that also covers every id outside ``[0, N)``, f32
-    queries, all contiguous."""
+def prepare_gather_distance(indices, queries, table, mask=None,
+                            computes=False):
+    """The plain version's arguments (``ref.gather_distance_ref``'s order):
+    int32 ids, f32 queries, the table and an int8 skip mask that covers
+    every id outside ``[0, N)`` and every lane ``mask`` does not compute
+    (``computes``: a set byte computes; else a set byte skips), all
+    contiguous."""
     idx = indices.to(torch.int32).contiguous()
-    out = ~ref.in_range(idx, table.shape[0])
-    if skip is not None:
-        out = out | (skip != 0)
-    return idx, out.to(torch.int8).contiguous(), _f32(queries), table
+    skip = ~ref.in_range(idx, table.shape[0])
+    if mask is not None:
+        skip = skip | ((mask == 0) if computes else (mask != 0))
+    return idx, _f32(queries), table, skip.to(torch.int8).contiguous()
 
 
-def _gather(idx, skip, queries, table):
-    if idx.is_cuda:
+def cuda_args_gather_distance(indices, queries, table, mask=None,
+                              computes=False):
+    """What the gather wrappers hand ``gather_distance_cuda``: each argument
+    as given where the kernel takes its form (int32 ids, f32 queries, a
+    bool, int8 or uint8 mask in either polarity), else converted.  On the
+    search loop's forms this runs no tensor op."""
+    return (indices.to(torch.int32).contiguous(), _f32(queries), table,
+            _mask_bytes(mask), computes)
+
+
+def _gather(indices, queries, table, mask=None, computes=False):
+    if indices.is_cuda:
         from repro_torch.kernels.gather_distance import gather_distance_cuda
-        out = gather_distance_cuda(idx, skip, queries, table)
+        out = gather_distance_cuda(*cuda_args_gather_distance(
+            indices, queries, table, mask, computes))
         LAUNCHES["gather_distance"] += 1
         return out
-    return ref.gather_distance_ref(idx, queries, table, skip)
+    return ref.gather_distance_ref(*prepare_gather_distance(
+        indices, queries, table, mask, computes))
 
 
 def gather_distance(indices, queries, table):
     """``dist2[b, m] = |q_b - table[indices[b, m]]|^2`` [B, M] f32, summed
     in the kernels' order.  Ids outside ``[0, N)`` read no row and report
     +inf (the JAX wrapper leaves them to the caller)."""
-    return _gather(*prepare_gather_distance(indices, queries, table))
+    return _gather(indices, queries, table)
 
 
 def gather_distance_pruned(nbr_ids, prune_mask, queries, table):
@@ -214,35 +236,57 @@ def gather_distance_pruned(nbr_ids, prune_mask, queries, table):
     read no row and report +inf.  On the TPU pruned lanes were remapped to
     the pad row so that their DMA was de-duplicated; the CUDA kernel simply
     skips them."""
-    return _gather(*prepare_gather_distance(nbr_ids, queries, table,
-                                            skip=prune_mask))
+    return _gather(nbr_ids, queries, table, prune_mask, computes=False)
+
+
+def gather_distance_where(ids, compute, queries, table):
+    """``gather_distance`` on the lanes with ``compute != 0`` (bool, int8 or
+    uint8) and in-range ids; every other lane reads no row and reports
+    +inf.  The search loop's entry: it hands over its own ids and compute
+    mask as they are, and on CUDA tensors no tensor op runs before the
+    launch."""
+    return _gather(ids, queries, table, compute, computes=True)
 
 
 def prepare_crouting_prune(ed, dcq, bound2, valid, cos_theta):
-    """The arguments ``crouting_prune`` hands to its kernel (or plain
-    version): contiguous [B, M] f32 lanes (dcq/bound2 broadcast from [B]),
-    an int8 valid mask and ``cos_theta`` rounded to f32."""
-    B, M = ed.shape
-    return (_f32(ed), _lanes(dcq, B, M, torch.float32),
-            _lanes(bound2, B, M, torch.float32),
-            (valid != 0).to(torch.int8).contiguous(),
-            float(torch.tensor(float(cos_theta), dtype=torch.float32)))
+    """The plain version's arguments: contiguous [B, L] f32 lanes (each of
+    ed/dcq/bound2 given as [B], [B, L] or [B, W, M] with W*M == L; [B, L]
+    is ``valid``'s shape), an int8 valid mask and ``cos_theta`` rounded to
+    f32."""
+    B, L = valid.shape
+    return (_lanes(ed, B, L, torch.float32), _lanes(dcq, B, L, torch.float32),
+            _lanes(bound2, B, L, torch.float32),
+            (valid != 0).to(torch.int8).contiguous(), _f32_scalar(cos_theta))
+
+
+def cuda_args_crouting_prune(ed, dcq, bound2, valid, cos_theta):
+    """What ``crouting_prune`` hands ``crouting_prune_cuda``: f32 operands
+    of any strides, the valid mask as bool, int8 or uint8 bytes as given
+    (else ``!= 0``), ``cos_theta`` rounded to f32.  On the search loop's
+    forms this runs no tensor op."""
+    ed, dcq, bound2 = (x.to(torch.float32) for x in (ed, dcq, bound2))
+    return ed, dcq, bound2, _mask_bytes(valid), _f32_scalar(cos_theta)
 
 
 def crouting_prune(ed, dcq, bound2, valid, cos_theta):
-    """Edge-angle estimate + prune mask over a [B, M] tile.
+    """Edge-angle estimate + prune mask over a [B, L] tile (``valid``'s
+    shape).
 
-    dcq/bound2 may be [B] (broadcast over lanes) or per-lane [B, M].
-    Returns (est2 [B, M] f32, prune [B, M] int8); ``prune = valid &
-    (est2 >= bound2)``, and a NaN estimate never prunes.
+    ed, dcq and bound2 may each be [B] (broadcast over lanes), [B, L] or
+    [B, W, M] with W*M == L (an expanded view costs no copy); ``valid`` is
+    bool, int8 or uint8.  Returns (est2 [B, L] f32, prune [B, L] bool);
+    ``prune = valid & (est2 >= bound2)``, and a NaN estimate never prunes.
+    On CUDA tensors of the search loop's forms no tensor op runs before the
+    launch.
     """
-    args = prepare_crouting_prune(ed, dcq, bound2, valid, cos_theta)
-    if args[0].is_cuda:
+    if valid.is_cuda:
         from repro_torch.kernels.crouting_prune import crouting_prune_cuda
-        out = crouting_prune_cuda(*args)
+        out = crouting_prune_cuda(*cuda_args_crouting_prune(
+            ed, dcq, bound2, valid, cos_theta))
         LAUNCHES["crouting_prune"] += 1
         return out
-    return ref.crouting_prune_ref(*args)
+    return ref.crouting_prune_ref(*prepare_crouting_prune(
+        ed, dcq, bound2, valid, cos_theta))
 
 
 def l2_distance(q, x, mode: str = "l2"):

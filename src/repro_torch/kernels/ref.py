@@ -85,7 +85,8 @@ def l2_distance_ref(q, x, mode: str = "l2"):
 
 
 def crouting_prune_ref(ed, dcq, bound2, valid, cos_theta):
-    """dcq/bound2: [B] (broadcast) or per-lane [B, M] (beam tiles)."""
+    """dcq/bound2: [B] (broadcast) or per-lane [B, M] (beam tiles).  The
+    prune mask is bool, as the kernel writes it."""
     ed = ed.to(torch.float32)
     dcq = dcq.to(torch.float32)
     if dcq.ndim == 1:
@@ -93,8 +94,7 @@ def crouting_prune_ref(ed, dcq, bound2, valid, cos_theta):
     if bound2.ndim == 1:
         bound2 = bound2[:, None]
     est2 = edge_angle_est2(ed, dcq, cos_theta)
-    mask = (valid != 0) & (est2 >= bound2)
-    return est2, mask.to(torch.int8)
+    return est2, (valid != 0) & (est2 >= bound2)
 
 
 def fused_expand_ref(nbrs, queries, ed, dcq, bound2, cos_theta, table,

@@ -22,7 +22,6 @@ from repro_torch.kernels import build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = [_P] * 7 + [ctypes.c_longlong, _P, _P] + [_I] * 4 + [_P]
-_MASK_DTYPES = (torch.bool, torch.int8, torch.uint8)
 
 
 def _lib():
@@ -46,13 +45,8 @@ def launch_args(nbrs, queries, eval_mask, codes, lo, scale, eps):
         ("lo", lo, torch.float32, (d,)),
         ("scale", scale, torch.float32, (d,)),
         ("eps", eps, torch.float32, (d,))))
-    if eval_mask is not None and (
-            eval_mask.dtype not in _MASK_DTYPES or eval_mask.device != dev
-            or tuple(eval_mask.shape) != (B, L)
-            or not eval_mask.is_contiguous()):
-        raise ValueError(f"sq8_distance_cuda: eval_mask must be a contiguous "
-                         f"[{B}, {L}] bool or int8 tensor on {dev}, got "
-                         f"{eval_mask.dtype} {tuple(eval_mask.shape)}")
+    build.check_mask("sq8_distance_cuda", "eval_mask", eval_mask, (B, L),
+                     dev)
     ad2 = torch.empty((B, L), dtype=torch.float32, device=dev)
     lb2 = torch.empty((B, L), dtype=torch.float32, device=dev)
     vec4 = int(d % 4 == 0 and codes.data_ptr() % 4 == 0

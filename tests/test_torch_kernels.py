@@ -209,11 +209,16 @@ class _OpCount(torch.utils._python_dispatch.TorchDispatchMode):
 def test_wrappers_prepare_cuda_launch_without_tensor_ops():
     """On the search loop's own argument forms (int32 ids, f32 operands,
     a [B, W, M] zero-stride dcq, an expanded [B, L] bound2, bool masks,
-    no prune mask), the CUDA side of ``ops.fused_expand`` and
-    ``ops.sq8_estimate`` runs no tensor op before the launch but the
-    output allocations.  Checked on CPU tensors routed through the same
-    argument functions; the old preparation runs many."""
+    no prune mask), the CUDA side of ``ops.fused_expand``,
+    ``ops.sq8_estimate``, the three gather wrappers (a bool compute mask,
+    an int8 skip mask, none) and ``ops.crouting_prune`` (a [B, W, M]
+    zero-stride dcq, an expanded or a [B] bound2, a bool valid mask) runs
+    no tensor op before the launch but the output allocations.  Checked on
+    CPU tensors routed through the same argument functions; the plain
+    versions' preparation runs many."""
+    from repro_torch.kernels import crouting_prune as CP
     from repro_torch.kernels import fused_expand as FE
+    from repro_torch.kernels import gather_distance as GD
     from repro_torch.kernels import sq8_distance as SK
     B, W, M, d, n = 4, 4, 8, 16, 50
     L = W * M
@@ -233,16 +238,31 @@ def test_wrappers_prepare_cuda_launch_without_tensor_ops():
             *ops.cuda_args_fused_expand(nbrs, queries, ed, dcq, bound2, 0.3,
                                         table, eval_mask=compute, **kw)),
         "sq8_estimate": lambda: SK.launch_args(*ops.cuda_args_sq8_estimate(
-            nbrs, queries, compute, codes, lo, scale, eps))}
-    for name, fn, kw in (
+            nbrs, queries, compute, codes, lo, scale, eps)),
+        "gather_distance": lambda **kw: GD.launch_args(
+            *ops.cuda_args_gather_distance(nbrs, queries, table, **kw)),
+        "crouting_prune": lambda b2: CP.launch_args(
+            *ops.cuda_args_crouting_prune(ed, dcq, b2, try_prune, 0.3))}
+    skip = (torch.rand(B, L, generator=g) < 0.5).to(torch.int8)
+    for name, fn, kw, n_out in (
             ("fused_expand", calls["fused_expand"],
-             dict(prune_eligible=None, prunes=False)),
+             dict(prune_eligible=None, prunes=False), 2),
             ("fused_expand", calls["fused_expand"],
-             dict(prune_eligible=try_prune)),
-            ("sq8_estimate", calls["sq8_estimate"], {})):
+             dict(prune_eligible=try_prune), 2),
+            ("sq8_estimate", calls["sq8_estimate"], {}, 2),
+            ("gather_distance_where", calls["gather_distance"],
+             dict(mask=compute, computes=True), 1),
+            ("gather_distance_pruned", calls["gather_distance"],
+             dict(mask=skip, computes=False), 1),
+            ("gather_distance", calls["gather_distance"], {}, 1),
+            ("crouting_prune", calls["crouting_prune"],
+             dict(b2=bound2), 2),
+            ("crouting_prune", calls["crouting_prune"],
+             dict(b2=bound2[:, 0].contiguous()), 2)):
         with _OpCount() as c:
             outs, _ = fn(**kw)
-        assert c.ops == ["aten.empty.memory_format"] * 2, (name, c.ops)
+        assert c.ops == ["aten.empty.memory_format"] * n_out, (name, c.ops)
+        outs = outs if n_out > 1 else (outs,)
         assert all(o.shape == (B, L) for o in outs)
     with _OpCount() as c:
         ops.prepare_fused_expand(nbrs, queries, ed, dcq, bound2, 0.3, table,
@@ -250,6 +270,10 @@ def test_wrappers_prepare_cuda_launch_without_tensor_ops():
         ops.prepare_sq8_estimate(nbrs, queries, compute, codes, lo, scale,
                                  eps)
     assert sum(o != "aten.empty.memory_format" for o in c.ops) >= 10
+    with _OpCount() as c:
+        ops.prepare_gather_distance(nbrs, queries, table, compute, True)
+        ops.prepare_crouting_prune(ed, dcq, bound2, try_prune, 0.3)
+    assert sum(o != "aten.empty.memory_format" for o in c.ops) >= 8
 
 
 @pytest.mark.parametrize("B,M", [(8, 128), (3, 40)])
@@ -363,6 +387,8 @@ def test_library_name_hashes_every_included_header(tmp_path, monkeypatch):
     library name hashes the source and every csrc file it includes."""
     for name in ("fused_expand", "gather_distance", "sq8_distance"):
         assert "warp_rows.cuh" in build.source_files(name)
+    for name in ("fused_expand", "crouting_prune"):
+        assert "lanes.cuh" in build.source_files(name)
     (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n'
                                    '#include "a.cuh"\n')
     (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
@@ -386,7 +412,7 @@ def cuda():
 @pytest.mark.parametrize("form", OPERAND_FORMS)
 @pytest.mark.parametrize("L,d", [(L, d) for L in (32, 128, 256)
                                  for d in (128, 960, 100)]
-                         + [(128, 200), (128, 384)])
+                         + [(128, 200), (128, 384), (128, 1536), (128, 2050)])
 def test_fused_expand_kernel_matches_plain_on_gpu(cuda, L, d, form):
     """Bit-equal with the plain version on every operand form, with ids
     past the table and negative ids handed to the kernel unmasked."""
