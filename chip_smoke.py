@@ -16,9 +16,11 @@ Phases, each printing one JSON line:
    [B, W, M] or expanded views, a table off 16-byte alignment; d in
    {200, 384} at L=128 besides) must be bit-equal;
    ``pool_merge`` (P in {64, 100, 200} x L in {32, 128, 256} on the warp
-   variant and P + L up to 4000 on the block
-   variant, sorted and shuffled pools, exact ties, +inf/pad sentinels,
-   id*4+flags payloads) must be bit-exact; ``sq8_distance`` (L in {32,
+   variant and P + L up to 4000 on the block variant, [512, 500] +
+   [512, 256] and [512, 500] + [512, 284] among them; sorted and shuffled
+   pools, exact ties, +inf/pad sentinels, id*4+flags payloads) must be
+   bit-exact; the row kernels and ``crouting_prune`` also at L = 284 (4 x
+   71 lanes: not a multiple of 32); ``sq8_distance`` (L in {32,
    128, 256}, d in {128, 960, 100}, with all-masked rows, out-of-range and
    negative ids unmasked, the pad row and constant dimensions; the eval
    mask as int8, bool or absent, a code table off alignment; d in {200,
@@ -37,13 +39,33 @@ Phases, each printing one JSON line:
    with its plain version within rtol 1e-4, atol 1e-4*d.
 3. ``hnsw``    — the main path with its hierarchy: make_dataset(50k x 128,
    64 clusters) -> AnnIndex.build(graph="hnsw", m=16, efc=64) -> search
-   1024 queries in batches of 128 with every spec of ``SPECS`` on its
-   engines: the "torch" (plain) engine, the "fused" kernel engine and, for
-   the specs in ``UNFUSED_SPECS``, the "unfused" kernel engine.
-4. ``knn_1m``  — the kernels at a deployment's state size: 1M x 128 (one
+   1024 queries in batches of 128 with every spec of ``SPECS`` and
+   ``FINGER_SPECS`` on its engines: the "torch" (plain) engine, the "fused"
+   kernel engine and, for the specs in ``UNFUSED_SPECS`` and the FINGER
+   specs, the "unfused" kernel engine.
+4. ``nsg``     — NSG construction on the card at the paper's widths (R=70,
+   C=500, L=60, knn_k=64) on the hnsw phase's data: AnnIndex.build(
+   graph="nsg") (K-NN graph, candidate acquisition through ``fused_expand``
+   and ``pool_merge`` at B=512, efs=500, tensor MRNG, spanning tree), its
+   seconds per step and launches; the built graph's rows against the NumPy
+   MRNG loop on the candidate pools the build handed its tensor MRNG for
+   2,000 sampled nodes (>= 0.999 of rows equal, every differing row with
+   its margin); the phase-2 checks again at the shapes this graph gives
+   the kernels (``nsg_kernel_checks``: the tiles W*M at W = 4 and 1 with M
+   the graph's padded degree, their merges into the efs pool, and the
+   acquisition's fused_expand at B = 512 and block-variant pool_merge);
+   every spec of ``SPECS`` and ``FINGER_SPECS`` on every engine, with each
+   kernel held bit for bit against its plain version on inputs captured
+   from each (spec, engine) run (``captured_equal``); save, ``load`` on
+   the card and search ``W4`` again (ids and counters equal).
+5. ``router_sweep`` — every registered router on every engine on
+   benchmarks/bench_engine.py's ``engine_router_sweep`` setting
+   (sift-synth 4000 x 128, HNSW m=16, efc=128, k=10, efs=64): dist_calls
+   within 1% and recall within 0.01 of BENCH_engine.json's.
+6. ``knn_1m``  — the kernels at a deployment's state size: 1M x 128 (one
    Gaussian cloud) -> AnnIndex.build(graph="knn", k=32) on the card, the
-   same searches.
-5. ``retrieval`` — the dlrm-mlperf retrieval path
+   same searches (no FINGER: its host table build at 1M nodes).
+7. ``retrieval`` — the dlrm-mlperf retrieval path
    (examples/dlrm_retrieval_torch.py): the DLRM serve step at full widths
    (vocabulary capped at 4M rows a table) on ``serve_p99``; brute force at
    ``retrieval_cand`` (1M unit-norm 128-d candidates, 1 and 32 queries)
@@ -52,9 +74,11 @@ Phases, each printing one JSON line:
    index with ``metric="ip"`` (m=16, efc=96) over 50k candidates drawn as
    the example draws them, searched at k=100, efs=200 with every spec of
    ``IP_SPECS`` on its engines (recall@100 against brute force).
-6. ``timing``  — each kernel, its plain version and its bound on inputs
+8. ``timing``  — each kernel, its plain version and its bound on inputs
    captured from the knn_1m main path: fused_expand and pool_merge at W=4
-   (the router hook decides the prunes) and W=1 (the kernel does),
+   (the router hook decides the prunes) and W=1 (the kernel does), and on
+   the NSG build's acquisition ([512, 256] tiles, pool_merge's block
+   variant at [512, 500] + [512, 256]),
    sq8_distance on the stage-1 tile and gather_distance on the in-loop
    [B, W] and final [B, efs] reranks of ``W4_both``, crouting_prune and
    gather_distance on the unfused W=4 tile; l2_distance in ip mode at
@@ -77,12 +101,12 @@ Phases, each printing one JSON line:
    kernel's time on the same inputs with every lane masked, which reads
    no row (``no_rows_device_ms``).
 
-For phases 3, 4 and the index of 5 each kernel engine must launch exactly
-the kernels its (engine, spec) runs (``expected_kernels``; every one at
-least once, no other), and must agree with the torch engine: identical ids
-and per-query counters (dist_calls, est_calls, hops, rerank_calls,
-sq8_calls) on >= 99% of queries, mean dist_calls within 0.5%, recall
-within 0.005.  Each phase resets the kernels' launch counts just before
+For phases 3, 4, 6 and the index of 7 each kernel engine must launch
+exactly the kernels its (engine, spec) runs (``expected_kernels``; every
+one at least once, no other), and must agree with the torch engine:
+identical ids and per-query counters (dist_calls, est_calls, hops,
+rerank_calls, sq8_calls and the router's own, finger_est_calls) on >= 99%
+of queries, mean dist_calls within 0.5%, recall within 0.005.  Each phase resets the kernels' launch counts just before
 it drives its path and reads them just after.  Any failed check raises
 and the script exits non-zero.  The last three lines are the kernel table
 (JSON), the card's name and power limit (nvidia-smi), and
@@ -114,6 +138,16 @@ SPECS = {"W4": dict(k=10, efs=100, router="crouting", beam_width=4),
          "W1_sq8": dict(k=10, efs=100, router="none", estimate="sq8",
                         beam_width=1)}
 UNFUSED_SPECS = ("W4", "W4_both", "W1_sq8")
+# the FINGER comparison router (paper §5.7) in the hnsw and nsg phases: its
+# estimate is plain PyTorch under every engine, the kernels do the rest
+FINGER_SPECS = {"finger_W1": dict(k=10, efs=100, router="finger",
+                                  beam_width=1),
+                "finger_W4": dict(k=10, efs=100, router="finger",
+                                  beam_width=4)}
+# NSG at the paper's widths (§5.1: R=70, C=500, L=60), K-NN graph k=64
+NSG_KW = dict(r=70, c=500, l=60, knn_k=64)
+# nodes whose MRNG selection on the card is held against the NumPy loop
+MRNG_SAMPLE = 2000
 # the retrieval example's spec (k=100, efs=2k) and its beam forms
 IP_SPECS = {"ip_W1": dict(k=100, efs=200, router="crouting"),
             "ip_W4": dict(k=100, efs=200, router="crouting", beam_width=4),
@@ -284,7 +318,16 @@ def event_floor_ms():
 
 
 # --- phase 2: kernels against their plain versions ---------------------------
-def fused_expand_case(rng, B, L, d, n_rows, dev):
+def lane_group(L, W=None):
+    """Lanes one beam slot owns in the row-kernel checks: L / W where the
+    case names its beam width W (the nsg phase's tiles: W slots of the
+    graph's degree), else 32, or L / 4 where L is not a multiple of 32."""
+    if W:
+        return L // W
+    return 32 if L % 32 == 0 else L // 4
+
+
+def fused_expand_case(rng, B, L, d, n_rows, dev, W=None):
     """Inputs with every edge case the engine can hand the kernel; the ids
     out of range and negative are not masked (the kernel checks them)."""
     import numpy as np
@@ -297,7 +340,8 @@ def fused_expand_case(rng, B, L, d, n_rows, dev):
     nbrs[2, 1::5] = -1
     ed = rng.uniform(0, 30, size=(B, L)).astype(np.float32)
     ed[:, ::13] = np.inf                              # adjacency pad slots
-    dcq = np.repeat(rng.uniform(5, 30, size=(B, L // 32)), 32, axis=1)
+    g = lane_group(L, W)
+    dcq = np.repeat(rng.uniform(5, 30, size=(B, L // g)), g, axis=1)
     dcq = dcq.astype(np.float32)
     bound2 = np.repeat(rng.uniform(10, 900, size=(B, 1)), L, axis=1)
     bound2 = bound2.astype(np.float32)
@@ -314,17 +358,19 @@ def fused_expand_case(rng, B, L, d, n_rows, dev):
             t(ev), t(el))
 
 
-# (L, d) of the two row kernels' cases: every width the search gives L,
-# and d across each count of 128-element passes the kernels are built for
+# (L, d) of the two row kernels' cases: the widths the hnsw and knn
+# searches give L, a tile of 4 x 71 lanes (not a multiple of 32), and d
+# across each count of 128-element passes the kernels are built for; the
+# nsg phase adds the tiles its graph gives (``nsg_kernel_checks``)
 ROW_KERNEL_SHAPES = ([(L, d) for L in (32, 128, 256) for d in (128, 960, 100)]
-                     + [(128, 200), (128, 384)])
+                     + [(128, 200), (128, 384), (284, 128)])
 
 
 EXPAND_FORMS = ("int8", "bool", "no_prune", "default_masks", "per_query",
                 "beam_view", "unaligned")
 
 
-def expand_form(raw, form):
+def expand_form(raw, form, W=None):
     """``fused_expand_case``'s inputs in one of the operand forms the
     wrapper takes: (args, kwargs)."""
     import torch
@@ -340,8 +386,8 @@ def expand_form(raw, form):
     elif form == "per_query":
         dcq, b2 = dcq[:, 0].contiguous(), b2[:, 0].contiguous()
     elif form == "beam_view":                 # [B, W] over M, bound2 [B]
-        W = L // 32
-        dcq = dcq[:, ::32].contiguous()[:, :, None].expand(B, W, 32)
+        g = lane_group(L, W)
+        dcq = dcq[:, ::g].contiguous()[:, :, None].expand(B, L // g, g)
         b2 = b2[:, 0].contiguous()[:, None].expand(B, L)
     elif form == "unaligned":
         flat = torch.empty(table.numel() + 1, dtype=table.dtype,
@@ -351,23 +397,27 @@ def expand_form(raw, form):
     return (nbrs, q, ed, dcq, b2, ct, table), kw
 
 
-def check_fused_expand(rng, dev):
+def check_fused_expand(rng, dev, cases=None):
+    """``cases``: (B, L, d, W) with W None for ``lane_group``'s default;
+    by default B = 128 at ``ROW_KERNEL_SHAPES``."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.fused_expand import fused_expand_cuda
     rows = []
-    for L, d in ROW_KERNEL_SHAPES:
-        raw = fused_expand_case(rng, 128, L, d, 20_001, dev)
+    if cases is None:
+        cases = [(128, L, d, None) for L, d in ROW_KERNEL_SHAPES]
+    for B, L, d, W in cases:
+        raw = fused_expand_case(rng, B, L, d, 20_001, dev, W)
         for form in EXPAND_FORMS:
-            args, kw = expand_form(raw, form)
+            args, kw = expand_form(raw, form, W)
             kd, kp = fused_expand_cuda(*args, **kw)
             pd, pp = ref.fused_expand_ref(*ops.prepare_fused_expand(
                 *args, **kw))
             torch.cuda.synchronize()
             check(bit_equal(kp, pp) and bit_equal(kd, pd),
-                  f"fused_expand L={L} d={d} {form}: not bit-equal with "
-                  "the plain version")
-        args, kw = expand_form(raw, "int8")
+                  f"fused_expand B={B} L={L} d={d} W={W} {form}: not "
+                  "bit-equal with the plain version")
+        args, kw = expand_form(raw, "int8", W)
         kd, kp = fused_expand_cuda(*args, **kw)
         ok = (args[0] >= 0) & (args[0] < args[6].shape[0])
         check(bool((kp[0] == ok[0]).all()) and
@@ -377,9 +427,10 @@ def check_fused_expand(rng, dev):
               and not bool(kp[2][~ok[2]].any()),
               "fused_expand: all-pruned / all-masked / out-of-range "
               "lanes wrong")
-        args, kw = expand_form(raw, "bool")
+        args, kw = expand_form(raw, "bool", W)
         pd, pp = ref.fused_expand_ref(*ops.prepare_fused_expand(*args, **kw))
-        rows.append({"L": L, "d": d, "forms": list(EXPAND_FORMS),
+        rows.append({"B": B, "L": L, "d": d, "lanes_a_slot": lane_group(L, W),
+                     "forms": list(EXPAND_FORMS),
                      "bit_equal": True, "max_abs_err": 0.0,
                      "pruned": int(pp.sum()),
                      "computed": int(torch.isfinite(pd).sum()),
@@ -417,28 +468,33 @@ def pool_merge_case(rng, B, P, L, n, dev, pool_sorted=True):
     return sd.contiguous(), si.contiguous(), t(nd), t(ni)
 
 
-# (P, L): the search paths' shapes (P = efs 100 or 200; L = W*M 32, 128 or
-# 256), then the block variant (P + L past WARP_MAX_NET, up to MAX_NET)
-POOL_SHAPES = tuple((P, L) for P in (64, 100, 200) for L in (32, 128, 256)) \
-    + ((300, 400), (1000, 1000), (2000, 2000))
+# (B, P, L): the search paths' shapes (P = efs 100 or 200; L = W*M 32, 128
+# or 256), then the block variant (P + L past WARP_MAX_NET, up to MAX_NET):
+# the NSG build's candidate acquisition (B = 512, P = C = 500, L = 4 x 64)
+# and a tile of 4 x 71 lanes beside it; the nsg phase adds the shapes its
+# graph gives (``nsg_kernel_checks``)
+POOL_SHAPES = tuple((128, P, L) for P in (64, 100, 200)
+                    for L in (32, 128, 256)) \
+    + ((128, 300, 400), (512, 500, 256), (512, 500, 284),
+       (128, 1000, 1000), (128, 2000, 2000))
 
 
-def check_pool_merge(rng, dev):
+def check_pool_merge(rng, dev, shapes=POOL_SHAPES):
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels.pool_merge import choose_variant, pool_merge_cuda
     rows = []
-    for P, L in POOL_SHAPES:
+    for B, P, L in shapes:
         for pool_sorted in (True, False):
-            args = pool_merge_case(rng, 128, P, L, 1_000_000, dev,
+            args = pool_merge_case(rng, B, P, L, 1_000_000, dev,
                                    pool_sorted)
             kd, ki = pool_merge_cuda(*args)
             pd, pi = ref.pool_merge_ref(*args)
             torch.cuda.synchronize()
             exact = bit_equal(kd, pd) and bit_equal(ki, pi)
-            check(exact, f"pool_merge P={P} L={L} sorted={pool_sorted}: "
-                  "not bit-exact")
-            rows.append({"P": P, "L": L, "pool_sorted": pool_sorted,
+            check(exact, f"pool_merge B={B} P={P} L={L} "
+                  f"sorted={pool_sorted}: not bit-exact")
+            rows.append({"B": B, "P": P, "L": L, "pool_sorted": pool_sorted,
                          "variant": choose_variant(P, L)[0],
                          "bit_exact": exact, "max_abs_err": 0.0,
                          "ms": cuda_times(lambda: pool_merge_cuda(*args),
@@ -499,21 +555,24 @@ def sq8_form(raw, form):
     return nbrs, q, ev, codes, lo, scale, eps
 
 
-def check_sq8_distance(rng, dev):
+def check_sq8_distance(rng, dev, cases=None):
+    """``cases``: (B, L, d); by default B = 128 at ``ROW_KERNEL_SHAPES``."""
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.sq8_distance import sq8_distance_cuda
     rows = []
-    for L, d in ROW_KERNEL_SHAPES:
-        raw = sq8_case(rng, 128, L, d, 20_001, dev)
+    if cases is None:
+        cases = [(128, L, d) for L, d in ROW_KERNEL_SHAPES]
+    for B, L, d in cases:
+        raw = sq8_case(rng, B, L, d, 20_001, dev)
         for form in SQ8_FORMS:
             args = sq8_form(raw, form)
             ka, kl = sq8_distance_cuda(*args)
             pa, pl = ref.sq8_estimate_ref(*ops.prepare_sq8_estimate(*args))
             torch.cuda.synchronize()
             check(bit_equal(ka, pa) and bit_equal(kl, pl),
-                  f"sq8_distance L={L} d={d} {form}: not bit-equal with "
-                  "the plain version")
+                  f"sq8_distance B={B} L={L} d={d} {form}: not bit-equal "
+                  "with the plain version")
         bad = (raw[0][2] < 0) | (raw[0][2] >= raw[3].shape[0])
         check(bool(torch.isinf(ka[1]).all()) and
               bool(torch.isfinite(ka[3]).all()) and
@@ -522,17 +581,20 @@ def check_sq8_distance(rng, dev):
               "sq8_distance: masked / evaluated / out-of-range rows wrong")
         args = sq8_form(raw, "bool")
         pa, pl = ref.sq8_estimate_ref(*ops.prepare_sq8_estimate(*args))
-        rows.append({"L": L, "d": d, "forms": list(SQ8_FORMS),
+        rows.append({"B": B, "L": L, "d": d, "forms": list(SQ8_FORMS),
                      "bit_equal": True, "max_abs_err": 0.0,
                      "evaluated": int(torch.isfinite(pa).sum()),
                      "ms": cuda_times(lambda: sq8_distance_cuda(*args), 50)})
     return rows
 
 
-# (M, d) of the gather checks: the call sites' widths across d, and d past
-# 1024, where the row is swept 1024 elements at a time (float4 and scalar)
+# (M, d) of the gather checks: the call sites' widths across d, d past
+# 1024, where the row is swept 1024 elements at a time (float4 and scalar),
+# and a tile of 4 x 71 lanes; the nsg phase adds the widths its graph gives
+# (``nsg_kernel_checks``)
 GATHER_SHAPES = ([(M, d) for M in (4, 100, 128) for d in (128, 960, 100)]
-                 + [(M, d) for M in (4, 128) for d in (1536, 2050)])
+                 + [(M, d) for M in (4, 128) for d in (1536, 2050)]
+                 + [(284, 128)])
 GATHER_FORMS = ("none", "compute_bool", "compute_int8", "compute_uint8",
                 "skip_bool", "skip_int8", "skip_uint8", "unaligned")
 
@@ -562,14 +624,14 @@ def gather_plain(idx, q, table, mask, computes):
         idx, q, table, mask, computes))
 
 
-def check_gather_distance(rng, dev):
+def check_gather_distance(rng, dev, shapes=GATHER_SHAPES):
     import numpy as np
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels.gather_distance import gather_distance_cuda
     rows = []
     n_rows = 20_001
-    for M, d in GATHER_SHAPES:
+    for M, d in shapes:
         table = rng.normal(size=(n_rows, d)).astype(np.float32)
         table[-1] = 0.0
         idx = rng.integers(0, n_rows, size=(128, M)).astype(np.int32)
@@ -633,13 +695,19 @@ def prune_form(ed, dcq, b2, valid, form, W=4):
     return ed, dcq, b2, valid
 
 
-def check_crouting_prune(rng, dev):
+# (L, W) of the prune checks: the hnsw and knn searches' unfused tiles and
+# a tile of 4 x 71 lanes; the nsg phase adds the tiles its graph gives
+# (``nsg_kernel_checks``)
+PRUNE_TILES = ((128, 4), (256, 4), (284, 4))
+
+
+def check_crouting_prune(rng, dev, tiles=PRUNE_TILES):
     import numpy as np
     import torch
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.crouting_prune import crouting_prune_cuda
     rows = []
-    for L in (128, 256):
+    for L, W in tiles:
         B = 128
         ed = rng.uniform(0, 30, size=(B, L)).astype(np.float32)
         ed[:, ::13] = np.inf                          # adjacency pad slots
@@ -651,22 +719,23 @@ def check_crouting_prune(rng, dev):
         valid = (rng.random((B, L)) < 0.8).astype(np.int8)
         raw = [torch.as_tensor(a, device=dev) for a in (ed, dcq, b2, valid)]
         for form in PRUNE_FORMS:
-            args = prune_form(*raw, form)
+            args = prune_form(*raw, form, W)
             ke, kp = crouting_prune_cuda(*ops.cuda_args_crouting_prune(
                 *args, 0.31))
             pe, pp = ref.crouting_prune_ref(*ops.prepare_crouting_prune(
                 *args, 0.31))
             torch.cuda.synchronize()
             check(kp.dtype == torch.bool and bit_equal(kp, pp)
-                  and bit_equal(ke, pe), f"crouting_prune L={L} {form}: not "
-                  "bit-equal with the plain version")
+                  and bit_equal(ke, pe), f"crouting_prune L={L} W={W} "
+                  f"{form}: not bit-equal with the plain version")
             nan = torch.isnan(ke)
             check(not bool(kp[0].any()) and
                   bool(kp[1].eq((raw[3][1] != 0) & ~nan[1]).all()),
                   f"crouting_prune {form}: bound2 = +inf / 0 rows wrong")
-        args = ops.cuda_args_crouting_prune(*prune_form(*raw, "BWM_view"),
-                                            0.31)
-        rows.append({"L": L, "forms": list(PRUNE_FORMS), "bit_equal": True,
+        args = ops.cuda_args_crouting_prune(
+            *prune_form(*raw, "BWM_view", W), 0.31)
+        rows.append({"L": L, "W": W, "forms": list(PRUNE_FORMS),
+                     "bit_equal": True,
                      "max_abs_err": 0.0, "pruned": int(kp.sum()),
                      "nan_estimates": int(nan.sum()),
                      "ms": cuda_times(lambda: crouting_prune_cuda(*args),
@@ -745,7 +814,7 @@ def check_l2_distance(dev):
     return rows
 
 
-# --- phases 3 and 4: the main path on both engines ---------------------------
+# --- phases 3, 4 and 6: the main path on every engine -----------------------
 def run_engine(idx, queries, spec):
     import numpy as np
     import torch
@@ -773,8 +842,11 @@ def expected_kernels(engine, kw):
     fused engine runs fused_expand on the exact path; the sq8 path runs
     sq8_distance and gather_distance (the reranks) instead; the unfused
     engine adds gather_distance on the exact path and crouting_prune where
-    the router prunes; every kernel engine merges with pool_merge.  The
-    torch engine launches none, and no search launches l2_distance."""
+    the router's estimate is the kernels' edge-angle form
+    (``kernel_estimate``: not ``none``, not ``finger``); every kernel
+    engine merges with pool_merge.  The torch engine launches none, and no
+    search launches l2_distance."""
+    from repro_torch.core.routers import get_router
     if engine == "torch":
         return set()
     sq8 = kw.get("estimate", "exact") in ("sq8", "both")
@@ -785,7 +857,7 @@ def expected_kernels(engine, kw):
         want.add("fused_expand")
     if engine == "unfused":
         want.add("gather_distance")
-        if kw["router"] != "none":
+        if get_router(kw["router"]).kernel_estimate:
             want.add("crouting_prune")
     return want
 
@@ -794,7 +866,9 @@ def compare_engines(phase, name, kw, runs, gt, nq, main_launches, k=10,
                     n_base=None):
     """Check each kernel engine's run against the torch engine's and its
     launches against ``expected_kernels``; emit one line per spec (with
-    dist_calls a query as a share of ``n_base`` where given)."""
+    dist_calls a query as a share of ``n_base`` where given).  The router's
+    own counters (``SearchStats.extra``, finger's ``finger_est_calls``)
+    count among the counters that must agree."""
     import numpy as np
     from repro_torch.data.vectors import recall_at_k
     out = {"phase": phase, "spec": name}
@@ -808,12 +882,18 @@ def compare_engines(phase, name, kw, runs, gt, nq, main_launches, k=10,
                "launches": r["launches"],
                "max_memory_allocated": r["max_memory_allocated"]}
         row.update({c: float(np.mean(getattr(st, c))) for c in COUNTERS})
+        row.update({c: float(np.mean(v)) for c, v in st.extra.items()})
         if n_base:
             row["dist_call_share"] = row["dist_calls"] / n_base
         if eng != "torch":
+            check(set(st.extra) == set(plain["stats"].extra),
+                  f"{phase}/{name}: {eng} router counters "
+                  f"{sorted(st.extra)} vs torch {sorted(plain['stats'].extra)}")
             same = np.all(r["ids"] == plain["ids"], axis=1)
             for c in COUNTERS:
                 same &= getattr(st, c) == getattr(plain["stats"], c)
+            for c, v in st.extra.items():
+                same &= v == plain["stats"].extra[c]
             row["agree_share"] = float(same.mean())
         out[eng] = row
     emit(out)
@@ -864,7 +944,295 @@ def search_phase(phase, idx, queries, gt, main_launches, captures=None,
                         main_launches, k=k, n_base=idx.graph.n)
 
 
-# --- phase 5: the dlrm-mlperf retrieval path ---------------------------------
+# --- phases 4 and 5: NSG construction and searches, the router sweep --------
+class PoolRecorder:
+    """Record the candidate pools the NSG build hands its MRNG selection
+    for a set of nodes: ``core.nsg.candidate_pool`` wrapped for the
+    duration of a ``with`` block."""
+
+    def __init__(self, nodes):
+        self.nodes = {int(p) for p in nodes}
+        self.pools = {}
+
+    def __enter__(self):
+        from repro_torch.core import nsg as N
+        self._orig = N.candidate_pool
+
+        def f(p, *a, **kw):
+            out = self._orig(p, *a, **kw)
+            if int(p) in self.nodes:
+                self.pools[int(p)] = out
+            return out
+        N.candidate_pool = f
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import nsg as N
+        N.candidate_pool = self._orig
+        return False
+
+
+def mrng_check(g, pools):
+    """The built graph's rows against the NumPy copy of the reference's
+    MRNG loop (``_mrng_select``) on the candidate pools the build handed
+    its tensor MRNG (``pools``, recorded by ``PoolRecorder``): each sampled
+    row's leading entries (the spanning tree appends its edges after them)
+    must be the loop's kept ids.  Returns the share of equal rows and, for
+    each differing row, the first pool position where the two differ with
+    its margin: the least |pw - rank| over the loop's kept candidates
+    before it (a comparison that close can flip with the fp32 product's
+    rounding)."""
+    import numpy as np
+    from repro_torch.core import distances as D
+    from repro_torch.core import nsg as N
+    differ, kept = [], []
+    for p, (cids, crank) in sorted(pools.items()):
+        want, _ = N._mrng_select(p, cids, crank, g.vectors, g.metric,
+                                 NSG_KW["r"])
+        kept.append(len(want))
+        got = g.neighbors[p][: len(want)]
+        if np.array_equal(got, want):
+            continue
+        pos = next((j for j in range(len(cids))
+                    if (cids[j] in got) != (cids[j] in want)), None)
+        before = [] if pos is None else [j for j in range(pos)
+                                         if cids[j] in want]
+        margin = None
+        if before:
+            cv = g.vectors[cids]
+            pw = D.pairwise_np(cv[pos: pos + 1], cv[before], g.metric)[0]
+            margin = float(np.abs(pw - crank[pos]).min())
+        differ.append({"node": int(p), "position": pos, "margin": margin})
+    return {"nodes": len(pools),
+            "pool_width": max(len(c) for c, _ in pools.values()),
+            "equal_share": 1.0 - len(differ) / len(pools),
+            "kept_mean": float(np.mean(kept)), "differing": differ}
+
+
+def nsg_kernel_checks(rng, dev, M, acq_M, d):
+    """The kernel checks at the shapes the NSG graph gives the kernels
+    (its padded degree ``M``): the searches' tiles W*M at W = 4 and 1
+    (fused_expand, sq8_distance, gather_distance, crouting_prune) and their
+    merges into the efs pool, and the build's acquisition on the K-NN graph
+    (degree ``acq_M``): fused_expand at B = 512, W = 4 and the block
+    variant of pool_merge at P = C."""
+    efs = SPECS["W4"]["efs"]
+    tiles = ((4 * M, 4), (M, 1))
+    acq_L = 4 * acq_M
+    return {"M": M, "acquisition_M": acq_M,
+            "fused_expand": check_fused_expand(
+                rng, dev, [(128, L, d, W) for L, W in tiles]
+                + [(512, acq_L, d, 4)]),
+            "sq8_distance": check_sq8_distance(
+                rng, dev, [(128, L, d) for L, _ in tiles]),
+            "gather_distance": check_gather_distance(
+                rng, dev, [(L, d) for L, _ in tiles]),
+            "crouting_prune": check_crouting_prune(rng, dev, tiles),
+            "pool_merge": check_pool_merge(
+                rng, dev, [(128, efs, L) for L, _ in tiles]
+                + [(512, NSG_KW["c"], acq_L)])}
+
+
+# the kernel each captured wrapper launches
+KERNEL_OF = {"fused_expand": "fused_expand", "pool_merge": "pool_merge",
+             "sq8_estimate": "sq8_distance",
+             "gather_distance_where": "gather_distance",
+             "crouting_prune": "crouting_prune"}
+
+
+def captured_equal(capture):
+    """Each kernel against its plain version, bit for bit, on the inputs a
+    main-path run handed its wrapper (``CaptureInputs``: one call per
+    wrapper and lane width).  Returns the checked kernels and shapes."""
+    from repro_torch.kernels import crouting_prune as CP
+    from repro_torch.kernels import fused_expand as FE
+    from repro_torch.kernels import gather_distance as GD
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import sq8_distance as SK
+    from repro_torch.kernels.pool_merge import pool_merge_cuda
+    done = []
+    for (name, width), (a, kw) in sorted(capture.args.items()):
+        if name == "fused_expand":
+            got = FE.fused_expand_cuda(*ops.cuda_args_fused_expand(*a, **kw))
+            want = ref.fused_expand_ref(*ops.prepare_fused_expand(*a, **kw))
+        elif name == "pool_merge":
+            margs = (a[0].float().contiguous(), a[1].int().contiguous(),
+                     a[2].float().contiguous(), a[3].int().contiguous())
+            got, want = pool_merge_cuda(*margs), ref.pool_merge_ref(*margs)
+        elif name == "sq8_estimate":
+            got = SK.sq8_distance_cuda(*ops.cuda_args_sq8_estimate(*a, **kw))
+            want = ref.sq8_estimate_ref(*ops.prepare_sq8_estimate(*a, **kw))
+        elif name == "gather_distance_where":
+            ids, compute, q, table = a
+            got = (GD.gather_distance_cuda(*ops.cuda_args_gather_distance(
+                ids, q, table, compute, True)),)
+            want = (gather_plain(ids, q, table, compute, True),)
+        else:
+            got = CP.crouting_prune_cuda(*ops.cuda_args_crouting_prune(
+                *a, **kw))
+            want = ref.crouting_prune_ref(*ops.prepare_crouting_prune(
+                *a, **kw))
+        shape = [list(a[0].shape)] + ([list(a[2].shape)]
+                                      if name == "pool_merge" else [])
+        check(all(bit_equal(x, y) for x, y in zip(got, want)),
+              f"{name} {shape}: not bit-equal with the plain version on "
+              "captured inputs")
+        done.append({"kernel": KERNEL_OF[name], "shape": shape})
+    return done
+
+
+def nsg_phase(ds, gt, main_launches, capture, rng):
+    """NSG at the paper's widths on the hnsw phase's data through
+    ``AnnIndex.build(graph="nsg")`` on the card (``capture`` around it:
+    the acquisition's kernel inputs for the timing phase), the built rows
+    against the NumPy MRNG loop, the kernels at the shapes the graph gives
+    them, every spec on every engine with each kernel held bit for bit
+    against its plain version on the inputs the searches handed it, and a
+    save/load round trip searched again."""
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.spec import SearchSpec
+    from repro_torch.kernels import ops
+    sample = np.random.default_rng(7).choice(len(ds.base), MRNG_SAMPLE,
+                                             replace=False)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with capture, PoolRecorder(sample) as pools:
+        idx = AnnIndex.build(ds.base, graph="nsg", **NSG_KW)
+    torch.cuda.synchronize()
+    build_secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    got = {k for k, v in launches.items() if v}
+    check(got == {"fused_expand", "pool_merge"},
+          f"nsg: the build launched {launches}")
+    for k, v in launches.items():
+        main_launches[k] = main_launches.get(k, 0) + v
+    g = idx.graph
+    deg = (g.neighbors < g.n).sum(1)
+    st = g.build_stats
+    check(len(pools.pools) == MRNG_SAMPLE,
+          f"nsg: {len(pools.pools)} sampled pools recorded")
+    mrng = mrng_check(g, pools.pools)
+    emit({"phase": "nsg", "part": "build", "n": g.n, "dim": g.dim,
+          **NSG_KW, "acquisition": "W=4, router none, engine fused, "
+                                   "batches of 512",
+          "build_secs": build_secs,
+          "step_secs": {k: st[f"{k}_secs"] for k in
+                        ("knn", "acquire", "mrng", "tree")},
+          "orphans": st["orphans"], "max_degree": int(deg.max()),
+          "mean_degree": float(deg.mean()), "padded_degree": g.max_degree,
+          "build_launches": launches,
+          "theta_star": idx.profile.theta_star, "mrng": mrng,
+          "cuts": "n 1M (the paper's SIFT) -> 50k, the hnsw phase's "
+                  "dataset, so both graphs answer the same queries; "
+                  "R, C, L, knn_k and d at the paper's widths"})
+    check(mrng["equal_share"] >= 0.999,
+          f"nsg: the built rows equal the NumPy MRNG loop on only "
+          f"{mrng['equal_share']:.4f} of {mrng['nodes']} rows")
+    emit({"phase": "nsg", "part": "kernels", **nsg_kernel_checks(
+        rng, idx.device, g.max_degree, NSG_KW["knn_k"], g.dim)})
+    specs = {**SPECS, **FINGER_SPECS}
+    captures = {(name, engine): CaptureInputs() for name in specs
+                for engine in ("fused", "unfused")}
+    search_phase("nsg", idx, ds.queries, gt, main_launches,
+                 captures=captures, specs=specs, unfused_specs=tuple(specs))
+    checked = {}
+    for (name, engine), c in captures.items():
+        checked[f"{name}/{engine}"] = done = captured_equal(c)
+        want = expected_kernels(engine, specs[name])
+        check({x["kernel"] for x in done} == want,
+              f"nsg {name}/{engine}: captured {done}, the run launches "
+              f"{sorted(want)}")
+    emit({"phase": "nsg", "part": "captured_kernels", "checked": checked})
+    del captures
+
+    # save, load on the card, search W4 again: ids and counters unchanged
+    spec = SearchSpec(**SPECS["W4"])
+    first = run_engine(idx, ds.queries, spec)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "nsg.npz")
+        t0 = time.perf_counter()
+        idx.save(path)
+        save_secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = AnnIndex.load(path)
+        load_secs = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+    again = run_engine(back, ds.queries, spec)
+    for k, v in again["launches"].items():
+        main_launches[k] = main_launches.get(k, 0) + v
+    same = bool(np.array_equal(first["ids"], again["ids"])) and all(
+        np.array_equal(getattr(first["stats"], c), getattr(again["stats"], c))
+        for c in COUNTERS)
+    emit({"phase": "nsg", "part": "save_load", "bytes": nbytes,
+          "save_secs": save_secs, "load_secs": load_secs,
+          "device": str(back.device), "ids_and_counters_equal": same})
+    check(same and back.device.type == "cuda",
+          "nsg: the loaded index searched differently on the card")
+    return idx
+
+
+def router_sweep(main_launches):
+    """The port's counterpart of ``benchmarks/bench_engine.py``'s
+    ``engine_router_sweep``: every registered router on every engine at
+    efs=64 on the same data and graph; each router's means beside the
+    reference's in BENCH_engine.json (read as data): dist_calls within 1%,
+    recall within 0.01 (a host BLAS can move a few HNSW edges)."""
+    import torch
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.routers import available_routers
+    from repro_torch.core.spec import SearchSpec
+    from repro_torch.data.vectors import (exact_ground_truth, make_dataset,
+                                          recall_at_k)
+    from repro_torch.kernels import ops
+    ref = json.loads((ROOT / "BENCH_engine.json").read_text())[
+        "engine_router_sweep"]
+    ds = make_dataset("sift-synth", n_base=4000, n_query=100, dim=128,
+                      n_clusters=64, seed=0)
+    t0 = time.perf_counter()
+    idx = AnnIndex.build(ds.base, graph="hnsw", m=16, efc=128)
+    build_secs = time.perf_counter() - t0
+    gt = exact_ground_truth(ds, k=10)
+    rows = {}
+    for name in available_routers():
+        kw = dict(k=10, efs=64, router=name)
+        for engine in ("fused", "unfused", "torch"):
+            spec = SearchSpec(engine=engine, **kw)
+            idx.search(ds.queries, spec)           # tables to the card
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            ids, _, st = idx.search(ds.queries, spec)
+            torch.cuda.synchronize()
+            launches = dict(ops.LAUNCHES)
+            got = {k for k, v in launches.items() if v}
+            check(got == expected_kernels(engine, kw),
+                  f"router_sweep/{name}: the {engine} engine launched "
+                  f"{sorted(got)}")
+            if engine != "torch":
+                for k, v in launches.items():
+                    main_launches[k] = main_launches.get(k, 0) + v
+            row = dict(st.summary(), recall=recall_at_k(ids, gt, 10))
+            want = ref[name]
+            row["reference"] = {k: want[k] for k in
+                                ("dist_calls", "recall", "iters")}
+            rows[f"{name}/{engine}"] = row
+            rel = abs(row["dist_calls"] - want["dist_calls"]) / max(
+                want["dist_calls"], 1e-9)
+            check(rel <= 0.01 and abs(row["recall"] - want["recall"]) <= 0.01,
+                  f"router_sweep/{name}/{engine}: dist_calls "
+                  f"{row['dist_calls']} recall {row['recall']} vs "
+                  f"BENCH_engine.json {want['dist_calls']} {want['recall']}")
+    emit({"phase": "router_sweep", "n": 4000, "dim": 128, "m": 16,
+          "efc": 128, "queries": 100, "efs": 64, "build_secs": build_secs,
+          "theta_star": idx.profile.theta_star, "routers": rows})
+    return rows
+
+
+# --- phase 7: the dlrm-mlperf retrieval path ---------------------------------
 VOCAB_CAP = 4_000_000     # 24.07M table rows, 12.3 GB fp32 (full: 96 GB)
 # the example's n_cand is 100k; on the H100 machine's host its index took
 # 657 s to build and the whole script 994 s, so the index is cut to 50k
@@ -1409,12 +1777,14 @@ def l2_crossover(cands, queries, flush):
 def timing_phase(captures, main_launches, cands, queries):
     """Each kernel against its plain version and its bound on inputs
     captured from the knn_1m main path (l2_distance on the retrieval
-    phase's candidates and queries).  Returns the kernel table: one row
+    phase's candidates and queries; fused_expand and pool_merge also on the
+    NSG build's candidate acquisition, B = 512, efs = 500).  Returns the kernel table: one row
     per kernel (its first timing), with the other timings under
     ``other_shapes`` and the main path's launch count."""
     import torch
     w4, w1 = captures[("W4", "fused")], captures[("W1", "fused")]
     both, unf = captures[("W4_both", "fused")], captures[("W4", "unfused")]
+    nsg = captures[("nsg", "build")]
     W, efs = SPECS["W4_both"]["beam_width"], SPECS["W4_both"]["efs"]
     L = unf.get("crouting_prune")[0][3].shape[1]
     # 64 MB written between timed launches evicts the 50 MB L2: the hop
@@ -1423,10 +1793,12 @@ def timing_phase(captures, main_launches, cands, queries):
                         device="cuda").zero_
     rows = {
         "fused_expand": [time_fused_expand(w4, flush),
-                         time_fused_expand(w1, flush)],
+                         time_fused_expand(w1, flush),
+                         time_fused_expand(nsg, flush)],
         "pool_merge": [time_pool_merge(w4), time_pool_merge(w1),
                        time_pool_merge(both),
-                       time_pool_merge(captures[("ip_W4", "fused")])],
+                       time_pool_merge(captures[("ip_W4", "fused")]),
+                       time_pool_merge(nsg)],
         "sq8_distance": [time_sq8_distance(both, flush)],
         "gather_distance": [
             time_gather_distance(both, W, flush, "in-loop rerank [B, W]"),
@@ -1570,11 +1942,23 @@ def main() -> int:
           "levels": idx.graph.build_stats["levels"],
           "theta_star": idx.profile.theta_star,
           "cuts": "n 1M->50k, m 32->16, efc 256->64 (host HNSW builder)"})
-    search_phase("hnsw", idx, ds.queries, gt, main_launches)
+    search_phase("hnsw", idx, ds.queries, gt, main_launches,
+                 specs={**SPECS, **FINGER_SPECS},
+                 unfused_specs=UNFUSED_SPECS + tuple(FINGER_SPECS))
     hnsw_prof = profile_batch(idx, ds.queries, SearchSpec(**SPECS["W4"]))
-    del idx, ds
+    del idx
 
-    # 4. knn_1m: the kernels at a deployment's state size
+    # 4. nsg: NSG at the paper's widths on the same data and queries
+    captures = {("nsg", "build"): CaptureInputs()}
+    nsg_idx = nsg_phase(ds, gt, main_launches, captures[("nsg", "build")],
+                        rng)
+    nsg_prof = profile_batch(nsg_idx, ds.queries, SearchSpec(**SPECS["W4"]))
+    del nsg_idx, ds
+
+    # 5. every router on every engine beside BENCH_engine.json
+    router_sweep(main_launches)
+
+    # 6. knn_1m: the kernels at a deployment's state size
     t0 = time.perf_counter()
     ds = make_dataset(n_base=1_000_000, n_query=1024, dim=128, n_clusters=1,
                       seed=0)
@@ -1594,13 +1978,14 @@ def main() -> int:
           "theta_star": prof.theta_star,
           "cuts": "graph K-NN instead of HNSW (host HNSW builder); angle "
                   "profile from 64 sampled searches instead of 1000"})
-    captures = {key: CaptureInputs() for key in (
+    captures.update({key: CaptureInputs() for key in (
         ("W4", "fused"), ("W1", "fused"), ("W4_both", "fused"),
-        ("W4", "unfused"))}
+        ("W4", "unfused"))})
     search_phase("knn_1m", idx, ds.queries, gt, main_launches,
                  captures=captures)
     profiles = {
         "hnsw_W4_fused": hnsw_prof,
+        "nsg_W4_fused": nsg_prof,
         "knn_1m_W4_fused": profile_batch(idx, ds.queries,
                                          SearchSpec(**SPECS["W4"])),
         "knn_1m_W4_both_fused": profile_batch(
@@ -1608,7 +1993,7 @@ def main() -> int:
         "knn_1m_W4_unfused": profile_batch(
             idx, ds.queries, SearchSpec(engine="unfused", **SPECS["W4"]))}
 
-    # 5. the dlrm-mlperf retrieval path
+    # 7. the dlrm-mlperf retrieval path
     captures[("ip_W4", "fused")] = CaptureInputs()
     cands, queries, ip_idx, ip_queries = retrieval_phase(dev, main_launches,
                                                          captures)
@@ -1616,7 +2001,7 @@ def main() -> int:
         ip_idx, ip_queries, SearchSpec(**IP_SPECS["ip_W4"]))
     emit({"phase": "profile", **profiles})
 
-    # 6. kernels on captured main-path inputs
+    # 8. kernels on captured main-path inputs
     kernels = timing_phase(captures, main_launches, cands, queries)
     emit({"phase": "done", "secs": time.perf_counter() - t_start})
     print(json.dumps({"kernels": kernels}))

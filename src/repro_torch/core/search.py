@@ -97,6 +97,9 @@ class SearchResult(NamedTuple):
     iters: int                # batch-level hop-loop iterations
     rerank_calls: torch.Tensor  # [B] int32 stage-2 exact reranks (sq8 path)
     sq8_calls: torch.Tensor     # [B] int32 stage-1 quantized estimates
+    # per-router [B] int32 counters (Router.extra_counters), e.g. finger's
+    # finger_est_calls
+    extra: Dict[str, torch.Tensor]
 
 
 def graph_device_arrays(g: GraphIndex, device: DeviceLike = None) -> Dict[str, Any]:
@@ -332,6 +335,9 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
     ecalls = torch.zeros((B,), dtype=_I32, device=dev)
     rrcalls = torch.zeros((B,), dtype=_I32, device=dev)
     sqcalls = torch.zeros((B,), dtype=_I32, device=dev)
+    # per-router counters (registry-declared, see Router.extra_counters)
+    extras = {name: torch.zeros((B,), dtype=_I32, device=dev)
+              for name in rt.extra_counters}
     hops = torch.zeros((B,), dtype=_I32, device=dev)
     iters = 0
 
@@ -428,7 +434,9 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
                 ed=ed, dcq=dcq_w.reshape(B, L), nx=nx, try_prune=try_prune,
                 upper=upper, cos_theta=cos_theta, metric=metric, n=n,
                 beam_width=W, max_degree=M)
-            prune = try_prune & (rt.estimate_rank(ctx) >= upper[:, None])
+            est_rank, extra_inc = rt.estimate_rank(ctx)
+            prune = try_prune & (est_rank >= upper[:, None])
+            extras = {k: v + extra_inc.get(k, 0) for k, v in extras.items()}
 
         if rescue:
             # within-tile error correction (paper Alg. 2): a second valid
@@ -503,13 +511,19 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         new_apx = insert if sq8_on else torch.zeros_like(insert)
         if kernels:
             # the approx and expanded flags ride the merge in the id's low
-            # bits: id*4 + approx*2 + expanded
-            enc_pool = pool_id * 4 + pool_apx.to(_I32) * 2 + pool_exp.to(_I32)
+            # bits: id*4 + approx*2 + (not expanded).  Two entries can share
+            # (dist, id) only when an adjacency row names a node twice (an
+            # NSG's orphan edges can): the beam expands the first copy, and
+            # the torch engine's stable sort keeps it first; with the bit
+            # set for an unexpanded entry the kernel orders them the same
+            enc_pool = (pool_id * 4 + pool_apx.to(_I32) * 2
+                        + (~pool_exp).to(_I32))
             pool_d, enc = ops.pool_merge(pool_d, enc_pool, new_d,
-                                         new_id * 4 + new_apx.to(_I32) * 2)
+                                         new_id * 4 + new_apx.to(_I32) * 2
+                                         + 1)
             pool_id = enc >> 2
             pool_apx = (enc & 2) == 2
-            pool_exp = (enc & 1) == 1
+            pool_exp = (enc & 1) == 0
         else:
             md = torch.cat([pool_d, new_d], dim=1)
             mi = torch.cat([pool_id, new_id], dim=1)
@@ -547,9 +561,10 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         dcalls, ecalls, rrcalls, sqcalls, hops = (
             torch.where(valid, a, 0)
             for a in (dcalls, ecalls, rrcalls, sqcalls, hops))
+        extras = {k: torch.where(valid, v, 0) for k, v in extras.items()}
     return SearchResult(ids=pool_id, dists=pool_d, dist_calls=dcalls,
                         est_calls=ecalls, hops=hops, iters=iters,
-                        rerank_calls=rrcalls, sq8_calls=sqcalls)
+                        rerank_calls=rrcalls, sq8_calls=sqcalls, extra=extras)
 
 
 # --- engine cache ------------------------------------------------------------
@@ -609,6 +624,9 @@ def build_search_fn(g: GraphIndex, cfg: SearchSpec, tombstones: bool = False,
         # upgrade the shared cached dict lazily: exact-only searches never
         # pay for the encode pass or the code table
         ensure_sq8_arrays(g, arrays)
+    # router companion tables (finger's signatures) upgrade it the same
+    # lazy way the first time the router searches this graph
+    rt.prepare(g, arrays)
 
     def _queries(q):
         return torch.as_tensor(q, dtype=torch.float32, device=dev)

@@ -31,7 +31,7 @@ do not.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -126,7 +126,10 @@ _COUNTERS = ("dist_calls", "est_calls", "rerank_calls", "sq8_calls", "hops")
 @dataclasses.dataclass
 class SearchStats:
     """Typed per-search statistics: per-query ``[B]`` int arrays plus the
-    batch-level hop-loop iteration count."""
+    batch-level hop-loop iteration count.  ``extra`` holds per-router
+    ``[B]`` counters in registry-declared order
+    (``Router.extra_counters``, e.g. the finger router's
+    ``finger_est_calls``)."""
 
     dist_calls: np.ndarray       # exact fp32 distance evaluations
     est_calls: np.ndarray        # router estimate evaluations
@@ -135,6 +138,7 @@ class SearchStats:
     hops: np.ndarray             # node expansions
     iters: int                   # batch-level hop-loop iterations
     router: str = "none"
+    extra: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
 
     @classmethod
     def from_result(cls, res, router: str = "none") -> "SearchStats":
@@ -143,27 +147,35 @@ class SearchStats:
                    est_calls=_host(res.est_calls),
                    rerank_calls=_host(res.rerank_calls),
                    sq8_calls=_host(res.sq8_calls), hops=_host(res.hops),
-                   iters=int(res.iters), router=router)
+                   iters=int(res.iters), router=router,
+                   extra={k: _host(v) for k, v in res.extra.items()})
 
     @classmethod
     def merge(cls, stats_list) -> "SearchStats":
         """Fold stats from many dispatches into one record: per-query
-        counters concatenate, ``iters`` is the max, ``router`` must agree."""
+        counters (router extras included) concatenate, ``iters`` is the
+        max, ``router`` must agree."""
         stats_list = list(stats_list)
         if not stats_list:
             raise ValueError("SearchStats.merge: empty stats list")
         routers = {s.router for s in stats_list}
         if len(routers) > 1:
             raise ValueError(f"SearchStats.merge: mixed routers {routers}")
+        keys = set().union(*(s.extra for s in stats_list))
         return cls(
             **{f: np.concatenate([getattr(s, f) for s in stats_list])
                for f in _COUNTERS},
             iters=max(int(s.iters) for s in stats_list),
-            router=stats_list[0].router)
+            router=stats_list[0].router,
+            extra={k: np.concatenate([s.extra[k] for s in stats_list
+                                      if k in s.extra])
+                   for k in sorted(keys)})
 
     def summary(self) -> dict:
         """JSON-ready digest (per-query means)."""
         out = {"router": self.router, "iters": int(self.iters)}
         for f in _COUNTERS:
             out[f] = round(float(np.mean(getattr(self, f))), 1)
+        for k, v in self.extra.items():
+            out[k] = round(float(np.mean(v)), 1)
         return out

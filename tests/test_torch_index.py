@@ -93,14 +93,15 @@ def test_non_spec_search_arguments_raise_type_error(ds, both):
         t.search(ds.queries, spec={"k": 10})
 
 
-def test_both_needs_a_pruning_router_and_nsg_is_not_ported(ds, both):
+def test_both_needs_a_pruning_router_and_nsg_builds(ds, both):
     _, t = both
     for est in ("sq8", "both"):
         SearchSpec(router="crouting", estimate=est)
     with pytest.raises(ValueError, match="pruning router"):
         t.search(ds.queries, spec=SearchSpec(router="none", estimate="both"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        AnnIndex.build(ds.base[:50], graph="nsg", device="cpu")
+    nsg = AnnIndex.build(ds.base[:50], graph="nsg", r=8, c=20, l=10,
+                         knn_k=8, device="cpu")
+    assert nsg.graph.kind == "nsg" and nsg.graph.n == 50
     with pytest.raises(ValueError, match="engine"):
         SearchSpec(engine="pallas")
 
@@ -166,7 +167,10 @@ new = ["repro_torch.quant.sq8", "repro_torch.kernels.sq8_distance",
        "repro_torch.kernels.crouting_prune", "repro_torch.kernels.l2_distance",
        "repro_torch.models.dlrm", "repro_torch.configs",
        "repro_torch.configs.dlrm_mlperf", "repro_torch.configs.shapes",
-       "repro_torch.configs.crouting_paper"]
+       "repro_torch.configs.crouting_paper", "repro_torch.core.nsg",
+       "repro_torch.core.finger", "repro_torch.core.togg",
+       "repro_torch.core.kdtree", "repro_torch.durable.atomic",
+       "repro_torch.fault.errors", "repro_torch.fault.failpoints"]
 assert all(m in mods for m in new), (new, mods)
 import chip_smoke
 import importlib.util

@@ -432,11 +432,15 @@ def test_fused_expand_kernel_matches_plain_on_gpu(cuda, L, d, form):
 @pytest.mark.gpu
 @pytest.mark.parametrize("P,L", [(P, L) for P in (64, 100, 200)
                                  for L in (32, 128, 256)]
-                         + [(300, 400), (2000, 2000)])
+                         + [(300, 400), (500, 256), (500, 284), (100, 728),
+                            (2000, 2000)])
 @pytest.mark.parametrize("pool", ["sorted", "shuffled"])
 def test_pool_merge_kernel_is_bit_exact_on_gpu(cuda, P, L, pool):
-    """Both variants (warp up to P + L = 512, block to 4096), on sorted
-    pools and on shuffled ones, as the stage-2 rerank leaves them."""
+    """Both variants (warp up to P + L = 512, block to 4096; the NSG
+    build's acquisition merges [B, 500] pools with tiles of 4 x 64, and a
+    search on an NSG merges its efs pool with tiles of 4 x the graph's
+    degree, which need not be a multiple of 32), on sorted pools and on
+    shuffled ones, as the stage-2 rerank leaves them."""
     from repro_torch.kernels.pool_merge import pool_merge_cuda
     pd, pi, nd, ni = _merge_inputs(P * L, 128, P, L)
     if pool == "shuffled":
