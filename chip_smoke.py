@@ -58,6 +58,36 @@ Phases, each printing one JSON line:
    kernel held bit for bit against its plain version on inputs captured
    from each (spec, engine) run (``captured_equal``); save, ``load`` on
    the card and search ``W4`` again (ids and counters equal).
+3b. ``serve`` — the serving frontend (``repro_torch.serve``) on the hnsw
+   index: a bucket ladder of (1, 8, 32, 128) warmed for three sessions
+   (``W4`` fused, ``W4_both`` fused, ``W4`` unfused); a seeded ragged
+   stream over the 1024 queries (1..128 rows a request, k mixed over 1, 5,
+   10) through ``flush()``, an armed ``serve.dispatch`` fault that must
+   fail only its own batch, then the worker thread serving the same stream
+   from 4 submitting threads.  Every request's ids, dists and per-query
+   counters must equal a direct ``idx.search`` of its rows, no request may
+   pay a first-use event after warmup (``recompiles_after_warmup == 0``),
+   each dispatch must launch exactly its (engine, spec)'s kernels.
+   Printed: latency percentiles, queue wait, QPS, pad overhead and first
+   uses by rung, for the flush and worker parts.
+4b. ``mutate`` — live mutation (``repro_torch.mutate``) on an NSG at the
+   nsg phase's widths over the first 20k rows of its data (cut from 50k to
+   keep the script within its time), behind the frontend (worker thread),
+   with a durable directory
+   (``wal_fsync="every"``): ragged requests interleaved with inserts of
+   1,024 fresh rows from the same mixture in chunks of 64 and 512 uniform
+   deletes, served on until a background merge (an NSG at the same
+   widths, built on the card) has completed with requests in flight.  No
+   result may hold an id deleted before its request, no first use on the
+   request path across the swap, recall@10 >= 0.95 x that of a static NSG
+   rebuild over the final live rows, ``fused`` and ``torch`` equal after
+   the merge.  Then ingest rows/s for each fsync policy, and the
+   kill-at-every-site sweep (``wal.append``, ``wal.fsync``,
+   ``wal.rotate``, ``checkpoint.write``, ``manifest.rename``): each crash
+   recovered on the card with no acknowledged mutation lost, no delete
+   resurrected, and searches equal to an index that never crashed.
+   Printed: the merge's seconds by step and its build's launches, request
+   latency during the merge and outside it, recovery seconds.
 5. ``router_sweep`` — every registered router on every engine on
    benchmarks/bench_engine.py's ``engine_router_sweep`` setting
    (sift-synth 4000 x 128, HNSW m=16, efc=128, k=10, efs=64): dist_calls
@@ -1176,6 +1206,600 @@ def nsg_phase(ds, gt, main_launches, capture, rng):
     return idx
 
 
+# --- phases 3b and 4b: serving and live mutation ------------------------------
+SERVE_BUCKETS = (1, 8, 32, 128)
+# the serve phase's sessions: (SPECS name, engine)
+SERVE_SESSIONS = (("W4", "fused"), ("W4_both", "fused"), ("W4", "unfused"))
+K_MIX = (1, 5, 10)
+# the mutate phase: fresh rows inserted in chunks, uniform deletes
+INSERT_ROWS, INSERT_CHUNK, DELETES, DELTA_CAPACITY = 1024, 64, 512, 1024
+# the mutate phase's base: the first rows of the nsg phase's data (its NSG
+# merge and the static rebuild run at this size)
+MUTATE_BASE = 20_000
+# requests the mutate phase keeps in flight, back to back, across the
+# merge and after it (the serve phase's 4 submitting threads)
+IN_FLIGHT = 4
+# requests served after the swap at that load: latency without a merge
+AFTER_MERGE = 32
+CHAOS_SITES = ("wal.append", "wal.fsync", "wal.rotate", "checkpoint.write",
+               "manifest.rename")
+
+
+def ragged_stream(n_queries, seed, top=SERVE_BUCKETS[-1]):
+    """A seeded ragged request stream: (lo, hi, k) spans covering
+    ``n_queries`` rows, 1..``top`` rows a request, k from ``K_MIX``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out, lo = [], 0
+    while lo < n_queries:
+        n = int(min(rng.integers(1, top + 1), n_queries - lo))
+        out.append((lo, lo + n, int(rng.choice(K_MIX))))
+        lo += n
+    return out
+
+
+def sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def record_dispatches(fe, sessions, records):
+    """Wrap the frontend's session of each ``sessions`` entry ("name/engine"
+    -> SearchSpec) so that every dispatch appends ("name/engine", the
+    kernels it launched) to ``records``.  It reads the calling thread's
+    own launches (``ops.thread_launch_counts``), so a merge thread's
+    launches beside it do not count."""
+    from repro_torch.kernels import ops
+    for key, spec in sessions.items():
+        sess = fe._session(spec)
+        orig = sess.engine.search_padded
+
+        def wrapped(*a, _orig=orig, _key=key):
+            before = ops.thread_launch_counts()
+            out = _orig(*a)
+            after = ops.thread_launch_counts()
+            records.append((_key, {k for k in after
+                                   if after[k] > before[k]}))
+            return out
+        sess.engine.search_padded = wrapped
+
+
+def check_dispatch_kernels(phase, records):
+    """Each dispatch launched exactly the kernel set of its session's
+    (engine, spec) (``expected_kernels``); returns the dispatches by
+    session."""
+    counts = {}
+    for key, got in records:
+        name, engine = key.split("/")
+        want = expected_kernels(engine, SPECS[name])
+        check(got == want, f"{phase}: a {key} dispatch launched "
+              f"{sorted(got)}, expected {sorted(want)}")
+        counts[key] = counts.get(key, 0) + 1
+    return counts
+
+
+def same_result(a, b):
+    """(ids, dists, stats) of a served request against a direct search of
+    its rows: ids, dists and every per-query counter equal (``iters`` is a
+    batch count and is left out)."""
+    import numpy as np
+    if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+        return False
+    sa, sb = a[2], b[2]
+    return (all(np.array_equal(getattr(sa, c), getattr(sb, c))
+                for c in COUNTERS) and set(sa.extra) == set(sb.extra)
+            and all(np.array_equal(sa.extra[c], sb.extra[c])
+                    for c in sa.extra))
+
+
+def serve_digest(summ):
+    """The serving line's numbers from a telemetry summary."""
+    return {"latency": summ["latency"], "queue_wait": summ["queue_wait"],
+            "qps": summ["qps"], "requests": summ["requests"],
+            "recompiles_after_warmup": summ["recompiles_after_warmup"],
+            "buckets": {b: {k: v for k, v in r.items()
+                            if k in ("dispatches", "compiles", "rows",
+                                     "pad_overhead", "p50_ms", "p99_ms")}
+                        for b, r in summ["buckets"].items()}}
+
+
+def serve_phase(idx, queries, main_launches):
+    """The serving frontend on the hnsw index: a ladder of (1, 8, 32, 128)
+    warmed for three sessions, a seeded ragged stream over every query
+    (1..128 rows a request, k mixed over 1, 5, 10) driven through
+    ``flush()``, then the worker thread serving the same stream from 4
+    submitting threads.  Each request equals a direct ``idx.search`` of its
+    rows, no request pays a first-use event after warmup, each dispatch
+    launches exactly its session's kernels, every future resolves, and an
+    armed ``serve.dispatch`` fault fails only its own batch."""
+    import threading
+    from repro_torch import fault
+    from repro_torch.core.spec import SearchSpec
+    from repro_torch.fault import RetryPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.serve import QueueFull, ServeFrontend
+    dev = idx.device
+    specs = {f"{n}/{e}": SearchSpec(engine=e, **SPECS[n])
+             for n, e in SERVE_SESSIONS}
+    base = specs["W4/fused"]
+    t0 = time.perf_counter()
+    fe = ServeFrontend(idx, base, buckets=SERVE_BUCKETS)
+    for spec in list(specs.values())[1:] + [base]:
+        fe.activate_spec(spec)                 # warm every session's rungs
+    warm_secs = time.perf_counter() - t0
+    check(fe.active_spec.canonical() == fe._session(base).spec.canonical(),
+          "serve: the base session is not active after warmup")
+    warm = {key: fe._session(s).engine.compile_count()
+            for key, s in specs.items()}
+    records = []
+    record_dispatches(fe, specs, records)
+    stream = ragged_stream(len(queries), seed=11)
+
+    # 1) every session's stream through flush(), counts from 0
+    sync(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    futs = {}
+    for key, spec in specs.items():
+        for i, (lo, hi, k) in enumerate(stream):
+            futs[key, i] = fe.submit(queries[lo:hi], spec=spec, k=k)
+            if i % 3 == 2:
+                fe.flush()
+        fe.flush()
+    flushed = {kk: f.result(timeout=600) for kk, f in futs.items()}
+    sync(dev)
+    flush_secs = time.perf_counter() - t0
+    launches = {"flush": dict(ops.LAUNCHES)}
+    flush_summary = serve_digest(fe.telemetry.summary())
+    flush_dispatches = check_dispatch_kernels("serve", records)
+    records.clear()
+
+    # 2) a serve.dispatch fault fails its own batch only: three requests
+    # in three cos_theta groups make three dispatches, the second faulted
+    ops.reset_launch_counts()
+    fault_futs = [fe.submit(queries[:3], cos_theta=ct)
+                  for ct in (0.9, 0.8, 0.7)]
+    fault.arm("serve.dispatch", kind="raise", hits={1})
+    try:
+        n_fault_dispatches = fe.flush()
+    finally:
+        fault.disarm()
+    outcome = []
+    for f in fault_futs:
+        try:
+            f.result(timeout=600)
+            outcome.append("ok")
+        except fault.FaultInjected:
+            outcome.append("fault")
+    check(n_fault_dispatches == 3 and outcome == ["ok", "fault", "ok"],
+          f"serve: the armed dispatch fault gave {outcome} over "
+          f"{n_fault_dispatches} dispatches")
+    records.clear()
+    sync(dev)
+    launches["dispatch_fault"] = dict(ops.LAUNCHES)
+
+    # 3) the worker thread, 4 threads submitting the same stream; a full
+    # queue (QueueFull) is retried under a seeded backoff
+    ops.reset_launch_counts()
+    snap0 = fe.telemetry.window_snapshot()
+    fe.start(poll_s=0.001)
+    worker_futs, errors = {}, []
+
+    def submit(w):
+        backoff = RetryPolicy(max_attempts=1000, base_s=0.002, cap_s=0.05,
+                              seed=w)
+        try:
+            for i in range(w, len(stream), 4):
+                lo, hi, k = stream[i]
+                for key, spec in specs.items():
+                    worker_futs[key, i] = backoff.call(
+                        fe.submit, queries[lo:hi], spec=spec, k=k,
+                        retry_on=QueueFull)
+        except Exception as e:   # noqa: BLE001 — checked on the main thread
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=submit, args=(w,)) for w in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+        check(not th.is_alive(), "serve: a submitting thread hung")
+    check(not errors, f"serve: submitting threads failed: {errors}")
+    served = {kk: f.result(timeout=600) for kk, f in worker_futs.items()}
+    fe.stop()
+    sync(dev)
+    launches["worker"] = dict(ops.LAUNCHES)
+    for part in launches.values():
+        for k, v in part.items():
+            main_launches[k] = main_launches.get(k, 0) + v
+    worker = fe.telemetry.window_delta(snap0, fe.telemetry.window_snapshot())
+    worker_dispatches = check_dispatch_kernels("serve", records)
+
+    after = {key: fe._session(s).engine.compile_count()
+             for key, s in specs.items()}
+    summ = fe.telemetry.summary()
+    # every request against a direct search of its own rows (whose odd
+    # batch shapes are first uses of the same engines: after the reads)
+    direct = {(key, i): idx.search(queries[lo:hi], spec.replace(k=k))
+              for key, spec in specs.items()
+              for i, (lo, hi, k) in enumerate(stream)}
+    bad_flush = [kk for kk in direct if not same_result(flushed[kk],
+                                                        direct[kk])]
+    bad_worker = [kk for kk in direct if not same_result(served[kk],
+                                                         direct[kk])]
+    emit({"phase": "serve", "n": idx.graph.n, "dim": idx.graph.dim,
+          "buckets": list(SERVE_BUCKETS), "requests": len(stream),
+          "rows": len(queries), "k_mix": list(K_MIX),
+          "sessions": list(specs), "warmup_secs": warm_secs,
+          "first_uses_at_warmup": warm, "first_uses_after": after,
+          "flush": {"secs": flush_secs, "dispatches": flush_dispatches,
+                    **flush_summary},
+          "worker": {"submitting_threads": 4, "dispatches": worker_dispatches,
+                     **worker},
+          "launches": launches, "dispatch_fault": outcome,
+          "requests_unequal_to_direct": {"flush": bad_flush[:5],
+                                         "worker": bad_worker[:5]},
+          "recompiles_after_warmup": summ["recompiles_after_warmup"]})
+    check(not bad_flush and not bad_worker,
+          f"serve: {len(bad_flush)} flushed and {len(bad_worker)} worker "
+          "requests differ from a direct search of their rows")
+    check(summ["recompiles_after_warmup"] == 0 and after == warm,
+          f"serve: first uses on the request path ({warm} -> {after})")
+    check(summ["requests"]["served"] == 2 * len(direct) + 2
+          and summ["requests"]["failed"] == 1, f"serve: {summ['requests']}")
+
+
+def fresh_rows(dim):
+    """``INSERT_ROWS`` rows from the hnsw phase's mixture: the same
+    centers (seed 0), drawn apart from its base rows."""
+    from repro_torch.data.vectors import make_dataset
+    return make_dataset(n_base=INSERT_ROWS, n_query=1, dim=dim,
+                        n_clusters=64, seed=0).base
+
+
+def search_all(mi, queries, spec):
+    """``mi.search`` over ``queries`` in batches of ``BATCH``; returns
+    (ids, dists, merged stats)."""
+    import numpy as np
+    from repro_torch.core.spec import SearchStats
+    outs = [mi.search(queries[s: s + BATCH], spec)
+            for s in range(0, len(queries), BATCH)]
+    return (np.concatenate([o[0] for o in outs]),
+            np.concatenate([o[1] for o in outs]),
+            SearchStats.merge([o[2] for o in outs]))
+
+
+def mutate_traffic(mi, fe, queries, fresh, rng):
+    """Ragged requests through the worker thread, interleaved with inserts
+    of ``fresh`` in chunks and uniform deletes, then served back to back
+    with ``IN_FLIGHT`` requests in flight until a background merge has
+    completed, and ``AFTER_MERGE`` more at that load.  Returns (futures with their submit
+    time and the ids deleted before it, done times, the external ids and
+    live mask of base + fresh rows, the merge's window)."""
+    from collections import deque
+    import numpy as np
+    from repro_torch.fault import RetryPolicy
+    from repro_torch.serve import QueueFull
+    backoff = RetryPolicy(max_attempts=1000, base_s=0.002, cap_s=0.05,
+                          seed=0)
+    n0 = mi.n_live
+    live = np.zeros(n0 + len(fresh), bool)
+    live[:n0] = True
+    dead, futs, done = set(), [], {}
+    sizes = ragged_stream(10 ** 6, seed=13)     # an endless seeded stream
+
+    def submit():
+        lo, hi, k = sizes[len(futs)]
+        rows = rng.integers(0, len(queries), hi - lo)
+        # backpressure (QueueFull) is retried under a seeded backoff
+        fut = backoff.call(fe.submit, queries[rows], k=k, retry_on=QueueFull)
+        i = len(futs)
+        fut.add_done_callback(lambda f, i=i: done.setdefault(
+            i, time.perf_counter()))
+        futs.append((fut, time.perf_counter(), sorted(dead)))
+
+    def serve(more):
+        """Keep ``IN_FLIGHT`` requests in flight while ``more()``."""
+        pending = deque()
+        while more():
+            while len(pending) < IN_FLIGHT:
+                submit()
+                pending.append(futs[-1][0])
+            pending.popleft().result(timeout=600)
+        for f in pending:
+            f.result(timeout=600)
+
+    window = [None, None]
+    chunks = INSERT_ROWS // INSERT_CHUNK
+    for step in range(chunks):
+        submit()
+        submit()
+        ids = mi.insert(fresh[step * INSERT_CHUNK:(step + 1) * INSERT_CHUNK])
+        live[ids] = True
+        kill = rng.choice(np.flatnonzero(live), DELETES // chunks,
+                          replace=False)
+        mi.delete(kill)
+        live[kill] = False
+        dead.update(int(x) for x in kill)
+        if window[0] is None and mi._merge_thread is not None:
+            window[0] = time.perf_counter()
+    check(window[0] is not None, "mutate: no background merge started")
+    # then the same load until the merge has swapped in, and after it:
+    # latency beside the merge against latency without it
+    serve(lambda: mi.merges_completed == 0 and mi._merge_thread.is_alive())
+    window[1] = time.perf_counter()
+    mi.wait_for_merge()
+    n = len(futs)
+    serve(lambda: len(futs) < n + AFTER_MERGE)
+    return futs, done, live, window
+
+
+def mutate_phase(ds, main_launches):
+    """Live mutation on an NSG at the nsg phase's widths over the first
+    ``MUTATE_BASE`` rows of its data, behind the serving frontend, with a
+    durable directory: ragged requests while 1,024 fresh rows are
+    inserted in chunks of 64 and 512 ids deleted, served across a
+    background NSG merge (built on the card, its acquisition through
+    fused_expand and pool_merge).  Checks: no deleted id returned, no
+    first use on the request path across the swap, recall@10 >= 0.95 x a
+    static NSG rebuild's over the final live rows, fused and torch equal
+    after the merge.  Then ingest rows/s per fsync policy and the
+    kill-at-every-site sweep: each crash recovered on the card, no acked
+    mutation lost, no delete resurrected, searches equal to an index that
+    never crashed."""
+    import os
+    import tempfile
+    import numpy as np
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.spec import SearchSpec
+    from repro_torch.data.vectors import (VectorDataset, exact_ground_truth,
+                                          recall_at_k)
+    from repro_torch.kernels import ops
+    from repro_torch.mutate import MutableAnnIndex, MutateConfig
+    from repro_torch.serve import ServeFrontend
+    t0 = time.perf_counter()
+    nsg_idx = AnnIndex.build(ds.base[:MUTATE_BASE], graph="nsg", **NSG_KW)
+    base_secs = time.perf_counter() - t0
+    dev = nsg_idx.device
+    spec = SearchSpec(**SPECS["W4"])
+    cfg = MutateConfig(graph="nsg", graph_kw=dict(NSG_KW),
+                       delta_capacity=DELTA_CAPACITY,
+                       auto_merge="background", wal_fsync="every")
+    fresh = fresh_rows(ds.base.shape[1])
+    rng = np.random.default_rng(17)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mutate_") as tmp:
+        t0 = time.perf_counter()
+        mi = MutableAnnIndex(nsg_idx, config=cfg, spec=spec,
+                             durable_dir=os.path.join(tmp, "live"))
+        create_secs = time.perf_counter() - t0
+        durable_fs = fs_type(tmp)
+        fe = ServeFrontend(mi, spec, buckets=SERVE_BUCKETS)
+        warm = mi.compile_count()
+        records = []
+        record_dispatches(fe, {"W4/fused": spec}, records)
+        sync(dev)
+        ops.reset_launch_counts()
+        fe.start(poll_s=0.001)
+        t0 = time.perf_counter()
+        futs, done, live, window = mutate_traffic(mi, fe, ds.queries, fresh,
+                                                  rng)
+        fe.stop()
+        results = [f.result(timeout=600) for f, _, _ in futs]
+        sync(dev)
+        traffic_secs = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        for k, v in launches.items():
+            main_launches[k] = main_launches.get(k, 0) + v
+        dispatches = check_dispatch_kernels("mutate", records)
+        leaks = sum(int(np.isin(r[0], d).sum())
+                    for r, (_, _, d) in zip(results, futs))
+        in_merge = [i for i, (_, t_sub, _) in enumerate(futs)
+                    if t_sub < window[1] and done[i] > window[0]]
+        lat = np.asarray([done[i] - t for i, (_, t, _) in enumerate(futs)])
+        during = np.zeros(len(futs), bool)
+        during[in_merge] = True
+        summ = fe.telemetry.summary()
+        first_uses_after = mi.compile_count()
+        merge = dict(mi.last_merge)
+
+        # final state: recall against a static rebuild over the live rows
+        all_rows = np.concatenate([ds.base[:MUTATE_BASE], fresh])
+        ext_of_row = np.flatnonzero(live)
+        check(np.array_equal(mi.live_ids(), ext_of_row),
+              "mutate: the index's live ids differ from the trace's")
+        gt_rows = exact_ground_truth(VectorDataset(
+            "live", all_rows[live], ds.queries), k=10, device=dev)
+        gt = ext_of_row[gt_rows]
+        fused = search_all(mi, ds.queries, spec)
+        plain = search_all(mi, ds.queries, spec.replace(engine="torch"))
+        t0 = time.perf_counter()
+        static = AnnIndex.build(all_rows[live], graph="nsg", device=dev,
+                                **NSG_KW)
+        static_secs = time.perf_counter() - t0
+        s_rows = np.concatenate([static.search(ds.queries[s: s + BATCH],
+                                               spec)[0]
+                                 for s in range(0, len(ds.queries), BATCH)])
+        s_ids = np.where(s_rows >= 0, ext_of_row[np.maximum(s_rows, 0)], -1)
+        recall_mut = recall_at_k(fused[0], gt, 10)
+        recall_static = recall_at_k(s_ids, gt, 10)
+        del static
+        equal_engines = bool(np.array_equal(fused[0], plain[0])) and all(
+            np.array_equal(getattr(fused[2], c), getattr(plain[2], c))
+            for c in COUNTERS)
+        ingest = ingest_rates(mi._state.snapshot.index, fresh, tmp)
+        # again in the checkout, which may sit on a disk where the temp
+        # directory is a tmpfs
+        with tempfile.TemporaryDirectory(prefix=".chip_smoke_ingest_",
+                                         dir=ROOT) as local:
+            ingest_checkout = ingest_rates(mi._state.snapshot.index, fresh,
+                                           local)
+        sweep = crash_sweep(mi._state.snapshot.index, fresh, ds.queries,
+                            spec, tmp)
+        mi.close()
+    pct = {}
+    for name, sel in (("during_merge", during), ("outside_merge", ~during)):
+        ms = lat[sel] * 1e3
+        pct[name] = ({"requests": int(sel.sum()),
+                      "p50_ms": float(np.percentile(ms, 50)),
+                      "p99_ms": float(np.percentile(ms, 99))}
+                     if sel.any() else {"requests": 0})
+    emit({"phase": "mutate", "n_start": nsg_idx.graph.n,
+          "base_build_secs": base_secs,
+          "inserted": INSERT_ROWS, "insert_chunk": INSERT_CHUNK,
+          "deleted": DELETES, "n_live": int(live.sum()),
+          **NSG_KW, "delta_capacity": DELTA_CAPACITY,
+          "wal_fsync": "every", "durable_fs": durable_fs,
+          "durable_create_secs": create_secs,
+          "traffic_secs": traffic_secs, "requests": len(futs),
+          "in_flight": IN_FLIGHT, "after_merge": AFTER_MERGE,
+          "requests_completed_in_merge": len(in_merge),
+          "merge_window_secs": window[1] - window[0],
+          "latency_by_merge": pct, "merges": mi.merges_completed,
+          "epoch": mi.epoch, "merge": merge, "dispatches": dispatches,
+          "deleted_leaks": leaks,
+          "recompiles_after_warmup": summ["recompiles_after_warmup"],
+          "first_uses_warm": warm, "first_uses_after": first_uses_after,
+          "serve": serve_digest(summ), "launches": launches,
+          "recall_at_10": recall_mut, "recall_static_rebuild": recall_static,
+          "recall_ratio": recall_mut / max(recall_static, 1e-9),
+          "static_rebuild_secs": static_secs,
+          "fused_equals_torch": equal_engines, "ingest": ingest,
+          "ingest_in_checkout": ingest_checkout,
+          "crash_sweep": sweep,
+          "cuts": "n 1M (the paper's SIFT) -> 20k, the first 20k rows of "
+                  "the nsg phase's 50k (at 50k the merge beside live "
+                  "traffic took 168 s and the script ran past 15 minutes); "
+                  "R, C, L, knn_k and d at the paper's widths"})
+    check(mi.merges_completed >= 1 and in_merge,
+          "mutate: no background merge completed with requests in flight")
+    check(set(merge["build_launches"]) == {"fused_expand", "pool_merge"},
+          f"mutate: the merge's NSG build launched {merge['build_launches']}")
+    check(leaks == 0, f"mutate: {leaks} results held deleted ids")
+    check(summ["recompiles_after_warmup"] == 0 and first_uses_after == warm,
+          f"mutate: first uses on the request path across the swap "
+          f"({warm} -> {first_uses_after})")
+    check(recall_mut >= 0.95 * recall_static,
+          f"mutate: recall@10 {recall_mut} < 0.95 x the static rebuild's "
+          f"{recall_static}")
+    check(equal_engines, "mutate: fused and torch differ after the merge")
+
+
+def fs_type(path):
+    """The filesystem type of the mount that holds ``path`` (from
+    /proc/mounts; ``None`` where that cannot be read)."""
+    import os
+    path = os.path.realpath(path)
+    best, kind = "", None
+    try:
+        with open("/proc/mounts") as f:
+            for line in f:
+                parts = line.split()
+                mnt = parts[1].replace("\\040", " ")
+                under = path == mnt or path.startswith(mnt.rstrip("/") + "/")
+                if under and len(mnt) >= len(best):
+                    best, kind = mnt, parts[2]
+    except OSError:
+        return None
+    return kind
+
+
+def ingest_rates(index, fresh, tmp):
+    """Rows/s of acked inserts (chunks of ``INSERT_CHUNK``) into a durable
+    index for each fsync policy, in ``tmp``; the rates say what an fsync
+    costs only where ``tmp`` is on a disk (its ``fs`` is printed)."""
+    import os
+    import shutil
+    from repro_torch.mutate import MutableAnnIndex, MutateConfig
+    out = {"fs": fs_type(tmp)}
+    for policy in ("every", "interval", "off"):
+        d = os.path.join(tmp, f"ingest-{policy}")
+        mi = MutableAnnIndex(index, config=MutateConfig(
+            graph="nsg", graph_kw=dict(NSG_KW), delta_capacity=INSERT_ROWS,
+            auto_merge="off", wal_fsync=policy), durable_dir=d)
+        t0 = time.perf_counter()
+        for s in range(0, INSERT_ROWS, INSERT_CHUNK):
+            mi.insert(fresh[s: s + INSERT_CHUNK])
+        secs = time.perf_counter() - t0
+        mi.close()
+        shutil.rmtree(d)
+        out[policy] = {"rows": INSERT_ROWS, "secs": secs,
+                       "rows_per_s": INSERT_ROWS / secs}
+    return out
+
+
+def crash_sweep(index, fresh, queries, spec, tmp):
+    """The kill-at-every-site sweep of the JAX package's recovery
+    benchmark on the card: acked inserts and deletes, a crash at one site
+    (an insert's WAL append or fsync, or a checkpoint's rotate, write or
+    manifest publish), ``recover`` on the card; no acked mutation lost, no
+    delete resurrected, and searches equal to an index given the same
+    mutations that never crashed."""
+    import os
+    import shutil
+    import numpy as np
+    from repro_torch import fault
+    from repro_torch.durable import WalFailedError
+    from repro_torch.mutate import MutableAnnIndex, MutateConfig
+    cfg = MutateConfig(graph="nsg", graph_kw=dict(NSG_KW),
+                       delta_capacity=INSERT_ROWS, auto_merge="off",
+                       wal_fsync="every")
+    a, b = fresh[:INSERT_CHUNK], fresh[INSERT_CHUNK: 2 * INSERT_CHUNK]
+    out = {}
+    for site in CHAOS_SITES:
+        d = os.path.join(tmp, site)
+        mi = MutableAnnIndex(index, config=cfg, durable_dir=d)
+        ids = mi.insert(a)                              # acked
+        deleted = [int(ids[1]), int(ids[7]), 11]
+        mi.delete(deleted)                              # acked
+        acked = mi.live_ids()
+        fault.arm(site, kind="raise", hits={0})
+        crashed_on = None
+        try:
+            try:
+                mi.insert(b)
+            except (fault.FaultInjected, WalFailedError):
+                crashed_on = "insert"
+            if crashed_on is None:
+                acked = mi.live_ids()                   # that insert acked
+                try:
+                    mi.checkpoint()
+                except (fault.FaultInjected, WalFailedError):
+                    crashed_on = "checkpoint"
+        finally:
+            fault.disarm()
+        check(crashed_on is not None, f"crash sweep: {site} never fired")
+        mi.close()
+        t0 = time.perf_counter()
+        back = MutableAnnIndex.recover(d, config=cfg, device=index.device)
+        recover_secs = time.perf_counter() - t0
+        got = set(map(int, back.live_ids()))
+        lost = set(map(int, acked)) - got
+        resurrected = got & set(deleted)
+        # the index that never crashed: the same mutations, and the second
+        # insert where it was acked or reached the log before the crash
+        twin = MutableAnnIndex(index, config=cfg)
+        twin.insert(a)
+        twin.delete(deleted)
+        extra = got - set(map(int, acked))
+        if crashed_on == "checkpoint" or extra:
+            twin.insert(b)
+        twin_ids = set(map(int, twin.live_ids()))
+        r1, r2 = (search_all(m, queries, spec) for m in (back, twin))
+        equal = (got == twin_ids and np.array_equal(r1[0], r2[0])
+                 and np.array_equal(r1[1], r2[1]))
+        out[site] = {"crashed_on": crashed_on, "acked_lost": len(lost),
+                     "resurrected": len(resurrected),
+                     "unacked_recovered": len(extra),
+                     "recover_secs": recover_secs,
+                     "searches_equal_uncrashed": bool(equal)}
+        back.close()
+        shutil.rmtree(d)
+        check(not lost and not resurrected and equal,
+              f"crash sweep {site}: {out[site]}")
+    return out
+
+
 def router_sweep(main_launches):
     """The port's counterpart of ``benchmarks/bench_engine.py``'s
     ``engine_router_sweep``: every registered router on every engine at
@@ -1946,6 +2570,8 @@ def main() -> int:
                  specs={**SPECS, **FINGER_SPECS},
                  unfused_specs=UNFUSED_SPECS + tuple(FINGER_SPECS))
     hnsw_prof = profile_batch(idx, ds.queries, SearchSpec(**SPECS["W4"]))
+    # 3b. serve: the bucketed frontend on the hnsw index
+    serve_phase(idx, ds.queries, main_launches)
     del idx
 
     # 4. nsg: NSG at the paper's widths on the same data and queries
@@ -1953,6 +2579,9 @@ def main() -> int:
     nsg_idx = nsg_phase(ds, gt, main_launches, captures[("nsg", "build")],
                         rng)
     nsg_prof = profile_batch(nsg_idx, ds.queries, SearchSpec(**SPECS["W4"]))
+    # 4b. mutate: live mutation with its WAL on an NSG of the same data,
+    # the crash sweep
+    mutate_phase(ds, main_launches)
     del nsg_idx, ds
 
     # 5. every router on every engine beside BENCH_engine.json

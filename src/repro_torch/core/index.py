@@ -42,6 +42,25 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.durable.atomic import (atomic_write_npz, read_npz,
                                         verify_checksum)
 
+
+def _build_hnsw(base, metric="l2", seed=0, device=None, **kw):
+    return build_hnsw(base, metric=metric, seed=seed, **kw)
+
+
+def _build_knn(base, metric="l2", seed=0, device=None, **kw):
+    return build_knn_graph(base, metric=metric, device=device, **kw)
+
+
+def _build_nsg(base, metric="l2", seed=0, device=None, **kw):
+    return build_nsg(base, metric=metric, seed=seed, device=device, **kw)
+
+
+# graph kind -> builder(base, metric=, seed=, device=, **graph_kw): HNSW on
+# the host, the K-NN graph and NSG on ``device`` (the K-NN graph takes no
+# seed).  ``AnnIndex.build`` and ``MutableAnnIndex``'s merges build through
+# it.
+GRAPH_BUILDERS = {"hnsw": _build_hnsw, "knn": _build_knn, "nsg": _build_nsg}
+
 # What a bare `idx.search(queries)` means: crouting on the kernel engine.
 DEFAULT_SEARCH = SearchSpec(k=10, efs=100, router="crouting", engine="fused")
 
@@ -68,16 +87,11 @@ class AnnIndex:
         on ``device``) and sample its angle profile; the index searches on
         ``device``."""
         dev = resolve_device(device)
-        if graph == "hnsw":
-            g = build_hnsw(base, metric=metric, seed=seed, **graph_kw)
-        elif graph == "knn":
-            g = build_knn_graph(base, metric=metric, device=dev, **graph_kw)
-        elif graph == "nsg":
-            g = build_nsg(base, metric=metric, seed=seed, device=dev,
-                          **graph_kw)
-        else:
+        if graph not in GRAPH_BUILDERS:
             raise ValueError(f"unknown graph {graph!r}; choose hnsw, knn "
                              "or nsg")
+        g = GRAPH_BUILDERS[graph](base, metric=metric, seed=seed, device=dev,
+                                  **graph_kw)
         prof = sample_angle_profile(g, percentile=profile_percentile,
                                     seed=seed) if profile else None
         return cls(graph=g, profile=prof, device=dev)
@@ -109,6 +123,29 @@ class AnnIndex:
         ``TypeError``.
         """
         spec = resolve_search_spec(spec, DEFAULT_SEARCH, "AnnIndex.search")
+        _, fn = build_search_fn(self.graph, self.engine_spec(spec),
+                                device=self.device)
+        return self.search_on(fn, queries, spec)
+
+    def engine_spec(self, spec: SearchSpec) -> SearchSpec:
+        """``spec`` as the engine runs it: the result pool widened to
+        ``k``, ``metric`` and ``use_hierarchy`` taken from the graph."""
+        g = self.graph
+        return dataclasses.replace(
+            spec, efs=max(spec.efs, spec.k), metric=g.metric,
+            use_hierarchy=g.upper_neighbors is not None)
+
+    def search_on(self, fn, queries: np.ndarray, spec: SearchSpec
+                  ) -> Tuple[np.ndarray, np.ndarray, SearchStats]:
+        """``search`` through ``fn``, the engine ``build_search_fn`` gave
+        for this graph and ``engine_spec(spec)``, held by the caller (a
+        serving session): the engine cache's eviction cannot make such a
+        call set an engine up again.  An engine of another spec raises
+        ``ValueError``."""
+        if fn.graph_ref() is not self.graph or \
+                fn.cfg != self.engine_spec(spec).canonical():
+            raise ValueError("search_on: the engine was built for another "
+                             "graph or spec")
         queries = D.preprocess_vectors(
             np.ascontiguousarray(queries, np.float32), self.graph.metric)
         cos_theta = spec.cos_theta
@@ -124,10 +161,6 @@ class AnnIndex:
             else:
                 cos_theta = 0.0   # never read by a non-pruning router
         k = spec.k
-        cfg = dataclasses.replace(
-            spec, efs=max(spec.efs, k), metric=self.graph.metric,
-            use_hierarchy=self.graph.upper_neighbors is not None)
-        _, fn = build_search_fn(self.graph, cfg, device=self.device)
         res = fn(queries, cos_theta)
         ids = res.ids[:, :k].cpu().numpy().astype(np.int64)
         dists = res.dists[:, :k].cpu().numpy().copy()

@@ -67,6 +67,7 @@ id N and distance +inf.
 """
 from __future__ import annotations
 
+import threading
 import weakref
 from typing import Any, Dict, NamedTuple, Optional
 
@@ -77,7 +78,7 @@ from repro_torch.core.graph import GraphIndex
 from repro_torch.core.routers import RouterContext, get_router
 from repro_torch.core.spec import SearchSpec
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels import ops
+from repro_torch.kernels import build, ops
 from repro_torch.kernels.ref import l2sq_rows
 from repro_torch.quant import sq8 as SQ
 
@@ -572,53 +573,121 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
 # searches that graph; bound engines per (graph identity, canonical spec,
 # router, tombstones, device).  Weakrefs guard against id() reuse after gc,
 # and dead-graph entries are purged on every call so their device tensors
-# do not stay pinned.
+# do not stay pinned.  ``_ENGINE_CACHE`` holds at most ``_ENGINE_CACHE_MAX``
+# engines; a caller that must not pay an evicted engine's setup again (a
+# serving session, a mutable index's snapshot) holds its engine and calls
+# it directly.
 _ARRAYS_CACHE: "dict[tuple, tuple]" = {}
 _ENGINE_CACHE: "dict[tuple, tuple]" = {}
 _ENGINE_CACHE_MAX = 16
+_CACHE_LOCK = threading.Lock()
 
 
 def _purge_dead_cache_entries():
     """Drop every cache entry tied to a collected graph."""
-    for k in [k for k, v in _ARRAYS_CACHE.items() if v[0]() is None]:
-        del _ARRAYS_CACHE[k]
-    for k in [k for k, v in _ENGINE_CACHE.items()
-              if v[0]() is None or (k[0], k[4]) not in _ARRAYS_CACHE]:
-        del _ENGINE_CACHE[k]
+    with _CACHE_LOCK:
+        for k in [k for k, v in _ARRAYS_CACHE.items() if v[0]() is None]:
+            del _ARRAYS_CACHE[k]
+        for k in [k for k, v in _ENGINE_CACHE.items()
+                  if v[0]() is None or (k[0], k[4]) not in _ARRAYS_CACHE]:
+            del _ENGINE_CACHE[k]
 
 
 def _graph_arrays_cached(g: GraphIndex, dev: torch.device):
     key = (id(g), str(dev))
-    hit = _ARRAYS_CACHE.get(key)
+    with _CACHE_LOCK:
+        hit = _ARRAYS_CACHE.get(key)
     if hit is not None and hit[0]() is g:
         return hit[1]
     arrays = graph_device_arrays(g, dev)
-    _ARRAYS_CACHE[key] = (weakref.ref(g), arrays)
+    with _CACHE_LOCK:
+        hit = _ARRAYS_CACHE.get(key)
+        if hit is not None and hit[0]() is g:
+            return hit[1]
+        _ARRAYS_CACHE[key] = (weakref.ref(g), arrays)
     return arrays
+
+
+class SearchEngine:
+    """A bound search engine: ``fn(queries [B, d], cos_theta)`` ->
+    ``SearchResult`` (with ``tombstones=True``: ``fn(queries, cos_theta,
+    tombstone [n+1])``).
+
+    It keeps a ledger of *first-use events*, the one-time work a warmup
+    has to take off the request path: its own setup (the cache miss that
+    built it: graph arrays uploaded, SQ8 codes encoded, router tables
+    built), each batch shape it runs for the first time, and each kernel
+    library its calls loaded first in the process (``build.load``, which
+    may run ``nvcc``).  ``first_uses()`` reads it, where the JAX package
+    reads a jitted function's ``_cache_size()``.
+    """
+
+    def __init__(self, g: GraphIndex, arrays, cfg: SearchSpec,
+                 tombstones: bool, dev: torch.device):
+        self.graph_ref = weakref.ref(g)
+        self.arrays = arrays
+        self.cfg = cfg
+        self.tombstones = tombstones
+        self.dev = dev
+        self._lock = threading.Lock()
+        self._shapes: set = set()       # guarded by: self._lock
+        self._loads = 0                 # guarded by: self._lock
+
+    def __call__(self, queries, cos_theta, tombstone=None) -> SearchResult:
+        if (tombstone is not None) != self.tombstones:
+            raise TypeError("a tombstones=True engine takes a tombstone "
+                            "mask, any other engine none")
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.dev)
+        if tombstone is not None:
+            tombstone = torch.as_tensor(tombstone, device=self.dev)
+        loads0 = build.first_loads_on_this_thread()
+        res = _search_batch(self.arrays, q, cos_theta, self.cfg,
+                            tombstone=tombstone)
+        loads = build.first_loads_on_this_thread() - loads0
+        with self._lock:
+            self._shapes.add(tuple(q.shape))
+            self._loads += loads
+        return res
+
+    def first_uses(self) -> int:
+        """Setup (1) + batch shapes run + kernel libraries first loaded."""
+        with self._lock:
+            return 1 + len(self._shapes) + self._loads
+
+
+def _insert_locked(key, g: GraphIndex, engine: SearchEngine):
+    """Cache ``engine`` under ``key``, evicting the oldest entries past
+    ``_ENGINE_CACHE_MAX`` (``_CACHE_LOCK`` held)."""
+    _ENGINE_CACHE.pop(key, None)
+    while len(_ENGINE_CACHE) >= _ENGINE_CACHE_MAX:
+        _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
+    _ENGINE_CACHE[key] = (weakref.ref(g), engine.arrays, engine)
 
 
 def build_search_fn(g: GraphIndex, cfg: SearchSpec, tombstones: bool = False,
                     device: DeviceLike = None):
-    """Returns (arrays, fn) for searching ``g`` under ``cfg`` on ``device``.
+    """Returns (arrays, engine) for searching ``g`` under ``cfg`` on
+    ``device``.
 
-    ``fn(queries [B, d], cos_theta) -> SearchResult``; with
-    ``tombstones=True`` it is ``fn(queries, cos_theta, tombstone [n+1])``.
-    Cached per (graph identity, canonical spec, router instance,
-    tombstones, device): a repeat call with the same live graph and an
-    equal spec returns the same callable and the same device arrays.
+    ``engine(queries [B, d], cos_theta) -> SearchResult``; with
+    ``tombstones=True`` it is ``engine(queries, cos_theta, tombstone
+    [n+1])`` (see ``SearchEngine``).  Cached per (graph identity,
+    canonical spec, router instance, tombstones, device): a repeat call
+    with the same live graph and an equal spec returns the same engine and
+    the same device arrays while the cache holds it.
     """
     dev = resolve_device(device)
     _purge_dead_cache_entries()
     cfg = cfg.canonical()
     rt = get_router(cfg.router)
     key = (id(g), cfg, rt, tombstones, str(dev))
-    hit = _ENGINE_CACHE.get(key)
-    if hit is not None:
-        ref, arrays, fn = hit
-        if ref() is g:
-            return arrays, fn
-        del _ENGINE_CACHE[key]
+    with _CACHE_LOCK:
+        hit = _ENGINE_CACHE.get(key)
+    if hit is not None and hit[0]() is g:
+        return hit[1], hit[2]
 
+    # the setup runs outside the lock: a concurrent lookup of another
+    # engine must not wait behind an upload
     arrays = _graph_arrays_cached(g, dev)
     if cfg.estimate in ("sq8", "both"):
         # upgrade the shared cached dict lazily: exact-only searches never
@@ -627,23 +696,14 @@ def build_search_fn(g: GraphIndex, cfg: SearchSpec, tombstones: bool = False,
     # router companion tables (finger's signatures) upgrade it the same
     # lazy way the first time the router searches this graph
     rt.prepare(g, arrays)
-
-    def _queries(q):
-        return torch.as_tensor(q, dtype=torch.float32, device=dev)
-
-    if tombstones:
-        def run(queries, cos_theta, tombstone):
-            return _search_batch(arrays, _queries(queries), cos_theta, cfg,
-                                 tombstone=torch.as_tensor(tombstone,
-                                                           device=dev))
-    else:
-        def run(queries, cos_theta):
-            return _search_batch(arrays, _queries(queries), cos_theta, cfg)
-
-    while len(_ENGINE_CACHE) >= _ENGINE_CACHE_MAX:
-        _ENGINE_CACHE.pop(next(iter(_ENGINE_CACHE)))
-    _ENGINE_CACHE[key] = (weakref.ref(g), arrays, run)
-    return arrays, run
+    engine = SearchEngine(g, arrays, cfg, tombstones, dev)
+    with _CACHE_LOCK:
+        hit = _ENGINE_CACHE.get(key)
+        if hit is not None and hit[0]() is g:
+            engine = hit[2]         # another thread set it up meanwhile
+        else:
+            _insert_locked(key, g, engine)
+    return engine.arrays, engine
 
 
 def search_batch(g: GraphIndex, queries: np.ndarray, cfg: SearchSpec,

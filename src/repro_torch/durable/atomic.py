@@ -1,15 +1,17 @@
-"""The atomic-persistence recipe of ``AnnIndex.save``.
+"""The atomic-persistence recipe shared by every durable artifact.
 
 A copy of ``repro.durable.atomic`` (the port imports nothing of the JAX
 package); the content checksum is the reference's byte for byte, so a file
-written by either package loads in the other.  Write ``{path}.tmp.{pid}``,
+written by either package loads in the other.  One protocol for index
+snapshots (``AnnIndex.save``), durability checkpoints and manifests: write ``{path}.tmp.{pid}``,
 stamp a content checksum, flush + fsync the file, ``os.replace`` into
 place, fsync the directory.  A crash at any instant leaves ``path``
 holding the old version or the complete new one, never a torn file;
 readers verify the checksum and raise ``CorruptIndexError`` on damage.
 
-Failpoint plumbing: the writer names its own sites (``index.save.write``
-/ ``index.save.rename``).  The data kinds (``corrupt``/``truncate``)
+Failpoint plumbing: each writer names its own sites (``index.save.write``
+/ ``index.save.rename`` for snapshots, ``checkpoint.write`` for
+checkpoints, ``manifest.rename`` for manifests).  The data kinds (``corrupt``/``truncate``)
 damage the temp file before publication, exercising the reader-side
 integrity checks.
 """
@@ -67,6 +69,28 @@ def atomic_replace(tmp: str, path: str) -> None:
     """``os.replace`` + directory fsync: the publish step of the recipe."""
     os.replace(tmp, path)
     fsync_dir(os.path.dirname(os.path.abspath(path)))
+
+
+def atomic_write_bytes(path: str, data: bytes,
+                       rename_site: Optional[str] = None) -> None:
+    """Atomically publish raw bytes (the manifest writer's primitive)."""
+    dirname = os.path.dirname(os.path.abspath(path))
+    os.makedirs(dirname, exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(data)
+            f.flush()
+            os.fsync(f.fileno())
+        if rename_site is not None:
+            fault.hit(rename_site)
+        atomic_replace(tmp, path)
+    except BaseException:   # noqa: BLE001 — temp-file hygiene, re-raised
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
 
 
 def atomic_write_npz(path: str, payload: Dict[str, np.ndarray], *,
@@ -133,3 +157,10 @@ def verify_checksum(path: str, z: Dict[str, np.ndarray]) -> None:
             f"{path}: content checksum mismatch (stored {want:#010x}, "
             f"computed {got:#010x}) — the payload was corrupted after it "
             "was written")
+
+
+def read_npz_verified(path: str) -> Dict[str, np.ndarray]:
+    """``read_npz`` + ``verify_checksum`` in one step (checkpoint reader)."""
+    z = read_npz(path)
+    verify_checksum(path, z)
+    return z

@@ -1,25 +1,26 @@
 """Deterministic failpoints: named fault-injection sites.
 
 A cut-down copy of ``repro.fault.failpoints`` (the port imports nothing of
-the JAX package), holding what index persistence uses.  A *failpoint* is a
-named call site; the port has two, both in ``AnnIndex.save``
-(``index.save.write`` and ``index.save.rename``).  Production code calls
+the JAX package) holding what the port uses.  A *failpoint* is a named
+call site threaded through the serving, mutation, persistence and
+durability paths (``DECLARED_SITES``).  Production code calls
 ``hit(site)`` at each one; with nothing armed that is a single module-flag
-check and an immediate return.  Tests arm a site with a ``FaultSpec``
-naming what to do on every hit:
+check and an immediate return.  Tests and the crash sweeps arm sites with
+a ``FaultSpec`` naming *when* to fire (explicit hit indices, or every hit,
+capped by ``max_fires``) and *what* to do:
 
 * ``raise``    — raise ``FaultInjected`` (a process "crash" at that site);
 * ``corrupt``/``truncate`` — return the kind string; the site applies the
-  damage itself (only ``index.save.write``, which owns the bytes, honors
-  these).
+  damage itself (only sites that own bytes — ``index.save.write``,
+  ``checkpoint.write``, ``wal.append`` — honor these; everywhere else an
+  armed corrupt kind is a no-op).
 """
-
 from __future__ import annotations
 
 import dataclasses
 import threading
 from contextlib import contextmanager
-from typing import Dict, Optional
+from typing import Dict, FrozenSet, Optional
 
 KINDS = ("raise", "corrupt", "truncate")
 
@@ -35,44 +36,86 @@ class FaultInjected(RuntimeError):
 
 @dataclasses.dataclass(frozen=True)
 class FaultSpec:
-    """What one armed site does on every hit."""
+    """When and how one armed site fires.
+
+    ``hits`` names explicit 0-based hit indices; with ``hits=None`` every
+    hit fires.  ``max_fires`` caps total fires either way — the knob for
+    "fail twice, then recover" schedules.
+    """
 
     kind: str = "raise"
+    hits: Optional[FrozenSet[int]] = None
+    max_fires: Optional[int] = None
 
     def __post_init__(self):
         assert self.kind in KINDS, f"unknown fault kind {self.kind!r}"
+        if self.hits is not None:
+            object.__setattr__(self, "hits", frozenset(int(h) for h in self.hits))
 
+
+class _Armed:
+    """Mutable per-site schedule state (guarded by the registry lock)."""
+
+    def __init__(self, spec: FaultSpec):
+        self.spec = spec
+        self.hit_count = 0
+        self.fire_count = 0
+
+    def decide(self) -> bool:
+        i, self.hit_count = self.hit_count, self.hit_count + 1
+        s = self.spec
+        if s.max_fires is not None and self.fire_count >= s.max_fires:
+            return False
+        fire = s.hits is None or i in s.hits
+        if fire:
+            self.fire_count += 1
+        return fire
 
 _LOCK = threading.Lock()
-_SITES: Dict[str, FaultSpec] = {}   # guarded by: _LOCK
-_FIRES: Dict[str, int] = {}         # guarded by: _LOCK
+_SITES: Dict[str, _Armed] = {}   # guarded by: _LOCK
 _ACTIVE = False          # fast path: hit() is one bool check when disarmed
+
+# Every production failpoint site of the port, one name per ``hit(...)``
+# call site (the ``write_site=``/``rename_site=`` arguments of the
+# atomic-write helpers count: the literal lives at the caller).  Passive:
+# ``arm()`` accepts any name so tests can use scratch sites.  The JAX
+# package's sharding and autotune sites join when those modules are ported.
+DECLARED_SITES = frozenset({
+    "serve.dispatch",
+    "serve.worker",
+    "mutate.merge.build",
+    "mutate.merge.swap",
+    "index.save.write",
+    "index.save.rename",
+    "wal.append",
+    "wal.fsync",
+    "wal.rotate",
+    "checkpoint.write",
+    "manifest.rename",
+})
 
 
 def arm(site: str, spec: Optional[FaultSpec] = None, **kw) -> None:
     """Arm ``site`` with ``spec`` (or ``FaultSpec(**kw)``), resetting its
-    fire count."""
+    hit/fire counters."""
     global _ACTIVE
     if spec is None:
         spec = FaultSpec(**kw)
     elif kw:
         raise TypeError("pass a FaultSpec or kwargs, not both")
     with _LOCK:
-        _SITES[site] = spec
-        _FIRES[site] = 0
+        _SITES[site] = _Armed(spec)
         _ACTIVE = True
 
 
 def disarm(site: Optional[str] = None) -> None:
-    """Disarm one site, or every site (``site=None``).  Counts drop."""
+    """Disarm one site, or every site (``site=None``).  Counters drop."""
     global _ACTIVE
     with _LOCK:
         if site is None:
             _SITES.clear()
-            _FIRES.clear()
         else:
             _SITES.pop(site, None)
-            _FIRES.pop(site, None)
         _ACTIVE = bool(_SITES)
 
 
@@ -92,18 +135,21 @@ def hit(site: str) -> Optional[str]:
     """One pass through the failpoint ``site``.
 
     Disarmed (the common case): returns ``None`` after a single flag
-    check.  Armed: ``raise`` raises ``FaultInjected``; the data kinds
-    (``corrupt``/``truncate``) return the kind string for the call site to
-    act on.
+    check.  Armed and scheduled to fire: ``raise`` kinds raise
+    ``FaultInjected``; data kinds (``corrupt``/``truncate``) return the
+    kind string for the call site to act on.
     """
     if not _ACTIVE:
         return None
     with _LOCK:
-        spec = _SITES.get(site)
-        if spec is None:
+        ent = _SITES.get(site)
+        if ent is None:
             return None
-        index = _FIRES[site]
-        _FIRES[site] = index + 1
+        fire = ent.decide()
+        spec = ent.spec
+        index = ent.hit_count - 1
+    if not fire:
+        return None
     if spec.kind == "raise":
         raise FaultInjected(site, index)
     return spec.kind
@@ -112,4 +158,6 @@ def hit(site: str) -> Optional[str]:
 def fires(site: str) -> int:
     """How many times ``site`` has fired since it was armed (0 if never)."""
     with _LOCK:
-        return _FIRES.get(site, 0)
+        ent = _SITES.get(site)
+        return ent.fire_count if ent is not None else 0
+

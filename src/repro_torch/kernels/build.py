@@ -12,6 +12,12 @@ from ``csrc/`` (``#include "..."``, followed recursively) and of the flags,
 so an edited kernel or header is never served from a stale library.  ``build_all`` starts one ``nvcc``
 per source at once and waits for all of them.  Importing this module
 compiles nothing (the CPU-only test machines have no ``nvcc``).
+
+``load`` is safe from several threads (a serving worker and a background
+merge may reach a kernel's first load together): one thread builds and
+loads a library while the others wait for it.  Each first load counts
+once, against the thread that made it (``first_loads_on_this_thread``),
+which is how the search engines tell a request that paid for ``nvcc``.
 """
 from __future__ import annotations
 
@@ -33,8 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_load_lock = threading.Lock()           # one first load at a time
 _LIBS: Dict[str, ctypes.CDLL] = {}      # guarded by: _lock
 BUILD_LOG: Dict[str, str] = {}          # guarded by: _lock
+_THREAD = threading.local()             # .first_loads: this thread's count
 
 
 def nvcc_path() -> str:
@@ -116,10 +124,22 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    path = build_all([name])[name]
-    lib = ctypes.CDLL(str(path))
-    with _lock:
-        return _LIBS.setdefault(name, lib)
+    with _load_lock:
+        with _lock:
+            lib = _LIBS.get(name)
+        if lib is not None:             # another thread loaded it meanwhile
+            return lib
+        path = build_all([name])[name]
+        lib = ctypes.CDLL(str(path))
+        with _lock:
+            _LIBS[name] = lib
+        _THREAD.first_loads = first_loads_on_this_thread() + 1
+    return lib
+
+
+def first_loads_on_this_thread() -> int:
+    """How many libraries this thread loaded first in the process."""
+    return getattr(_THREAD, "first_loads", 0)
 
 
 def check_args(kernel: str, dev, args) -> None:

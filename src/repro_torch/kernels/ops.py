@@ -14,10 +14,12 @@ before the launch but the output allocations):
 
 ``LAUNCHES`` counts launches per kernel (``gather_distance`` serves the
 three gather wrappers), so a run can show that the main path went through
-the kernels (``chip_smoke.py`` resets and reads it).
+the kernels (``chip_smoke.py`` resets and reads it); each thread's own
+launches are counted besides (``thread_launch_counts``).
 """
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 import numpy as np
@@ -30,9 +32,32 @@ LAUNCHES: Dict[str, int] = {"fused_expand": 0, "pool_merge": 0,
                             "crouting_prune": 0, "l2_distance": 0}
 
 
+_LAUNCH_LOCK = threading.Lock()
+_THREAD = threading.local()     # .launches: this thread's counts
+
+
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def _launched(name: str) -> None:
+    """Count one launch of ``name``: in ``LAUNCHES`` and in the calling
+    thread's own counts."""
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
+    mine = getattr(_THREAD, "launches", None)
+    if mine is None:
+        mine = _THREAD.launches = dict.fromkeys(LAUNCHES, 0)
+    mine[name] += 1
+
+
+def thread_launch_counts() -> Dict[str, int]:
+    """The launches made by the calling thread since it started (a merge
+    thread's build, apart from the searches served beside it)."""
+    return dict(getattr(_THREAD, "launches", None)
+                or dict.fromkeys(LAUNCHES, 0))
 
 
 def _lanes(x, B, L, dtype):
@@ -123,7 +148,7 @@ def fused_expand(nbrs, queries, ed, dcq, bound2, cos_theta, table,
         out = fused_expand_cuda(*cuda_args_fused_expand(
             nbrs, queries, ed, dcq, bound2, cos_theta, table, eval_mask,
             prune_eligible, prunes))
-        LAUNCHES["fused_expand"] += 1
+        _launched("fused_expand")
         return out
     return ref.fused_expand_ref(*prepare_fused_expand(
         nbrs, queries, ed, dcq, bound2, cos_theta, table, eval_mask,
@@ -143,7 +168,7 @@ def pool_merge(pool_d, pool_i, new_d, new_i):
     if pool_d.is_cuda:
         from repro_torch.kernels.pool_merge import pool_merge_cuda
         out = pool_merge_cuda(*args)
-        LAUNCHES["pool_merge"] += 1
+        _launched("pool_merge")
         return out
     return ref.pool_merge_ref(*args)
 
@@ -183,7 +208,7 @@ def sq8_estimate(nbrs, queries, eval_mask, codes, lo, scale, eps):
         from repro_torch.kernels.sq8_distance import sq8_distance_cuda
         out = sq8_distance_cuda(*cuda_args_sq8_estimate(
             nbrs, queries, eval_mask, codes, lo, scale, eps))
-        LAUNCHES["sq8_distance"] += 1
+        _launched("sq8_distance")
         return out
     return ref.sq8_estimate_ref(*prepare_sq8_estimate(
         nbrs, queries, eval_mask, codes, lo, scale, eps))
@@ -218,7 +243,7 @@ def _gather(indices, queries, table, mask=None, computes=False):
         from repro_torch.kernels.gather_distance import gather_distance_cuda
         out = gather_distance_cuda(*cuda_args_gather_distance(
             indices, queries, table, mask, computes))
-        LAUNCHES["gather_distance"] += 1
+        _launched("gather_distance")
         return out
     return ref.gather_distance_ref(*prepare_gather_distance(
         indices, queries, table, mask, computes))
@@ -283,7 +308,7 @@ def crouting_prune(ed, dcq, bound2, valid, cos_theta):
         from repro_torch.kernels.crouting_prune import crouting_prune_cuda
         out = crouting_prune_cuda(*cuda_args_crouting_prune(
             ed, dcq, bound2, valid, cos_theta))
-        LAUNCHES["crouting_prune"] += 1
+        _launched("crouting_prune")
         return out
     return ref.crouting_prune_ref(*prepare_crouting_prune(
         ed, dcq, bound2, valid, cos_theta))
@@ -304,6 +329,6 @@ def l2_distance(q, x, mode: str = "l2"):
     if q.is_cuda:
         from repro_torch.kernels.l2_distance import l2_distance_cuda
         out = l2_distance_cuda(q, x, mode)
-        LAUNCHES["l2_distance"] += 1
+        _launched("l2_distance")
         return out
     return ref.l2_distance_ref(q, x, mode)

@@ -155,7 +155,7 @@ def test_default_device_raises_without_a_gpu(ds):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 sys.path.insert(0, {repo!r})
 import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
@@ -170,21 +170,27 @@ new = ["repro_torch.quant.sq8", "repro_torch.kernels.sq8_distance",
        "repro_torch.configs.crouting_paper", "repro_torch.core.nsg",
        "repro_torch.core.finger", "repro_torch.core.togg",
        "repro_torch.core.kdtree", "repro_torch.durable.atomic",
-       "repro_torch.fault.errors", "repro_torch.fault.failpoints"]
+       "repro_torch.fault.errors", "repro_torch.fault.failpoints",
+       "repro_torch.fault.retry", "repro_torch.durable.wal",
+       "repro_torch.durable.manifest", "repro_torch.durable.store",
+       "repro_torch.mutate", "repro_torch.mutate.delta",
+       "repro_torch.mutate.index", "repro_torch.serve",
+       "repro_torch.serve.bucketing", "repro_torch.serve.telemetry",
+       "repro_torch.serve.backends", "repro_torch.serve.frontend"]
 assert all(m in mods for m in new), (new, mods)
 import chip_smoke
 import importlib.util
-spec = importlib.util.spec_from_file_location(
-    "dlrm_retrieval_torch", {example!r})
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for name in ("dlrm_retrieval_torch", "serve_anns_torch"):
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join({examples!r}, name + ".py"))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "repro"
        or m.startswith("repro.")]
 assert not bad, bad
 assert len(mods) >= 20, mods
 print("ok", len(mods))
-""".format(repo=REPO, example=os.path.join(REPO, "examples",
-                                           "dlrm_retrieval_torch.py"))
+""".format(repo=REPO, examples=os.path.join(REPO, "examples"))
     env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=REPO, timeout=120)

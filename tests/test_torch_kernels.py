@@ -452,3 +452,63 @@ def test_pool_merge_kernel_is_bit_exact_on_gpu(cuda, P, L, pool):
     pd, pi = ref.pool_merge_ref(*t)
     assert torch.equal(kd.view(torch.int32), pd.view(torch.int32))
     assert torch.equal(ki, pi)
+
+
+def test_load_builds_once_across_threads(monkeypatch):
+    """Threads reaching a kernel's first load together (a serving worker
+    and a background merge) build and load it once; the load counts as
+    one first load, on the thread that made it."""
+    import ctypes.util
+    import threading
+    import time
+    calls = []
+
+    def fake_build_all(names):
+        calls.append(tuple(names))
+        time.sleep(0.05)               # the others arrive during the build
+        return {n: ctypes.util.find_library("c") or "libc.so.6"
+                for n in names}
+
+    monkeypatch.setattr(build, "build_all", fake_build_all)
+    monkeypatch.setattr(build, "_LIBS", {})
+    got, firsts = [], []
+
+    def one():
+        before = build.first_loads_on_this_thread()
+        got.append(build.load("fake"))
+        firsts.append(build.first_loads_on_this_thread() - before)
+
+    threads = [threading.Thread(target=one) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    assert calls == [("fake",)]
+    assert len(got) == 8 and all(lib is got[0] for lib in got)
+    assert sorted(firsts) == [0] * 7 + [1]
+    assert build.load("fake") is got[0] and calls == [("fake",)]
+
+
+def test_launch_counts_per_thread():
+    """Each launch counts in ``LAUNCHES`` and in its thread's own counts,
+    so a merge thread's build launches read apart from the searches."""
+    import threading
+    base = dict(ops.LAUNCHES)
+    mine = ops.thread_launch_counts()
+    seen = {}
+
+    def worker():
+        for _ in range(3):
+            ops._launched("pool_merge")
+        seen.update(ops.thread_launch_counts())
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join(timeout=30)
+    try:
+        assert seen["pool_merge"] == 3 and seen["fused_expand"] == 0
+        assert ops.thread_launch_counts() == mine
+        assert ops.LAUNCHES["pool_merge"] == base["pool_merge"] + 3
+    finally:
+        ops.LAUNCHES.update(base)
