@@ -88,6 +88,35 @@ Phases, each printing one JSON line:
    resurrected, and searches equal to an index that never crashed.
    Printed: the merge's seconds by step and its build's launches, request
    latency during the merge and outside it, recovery seconds.
+4c. ``sharded`` — the sharded index (``repro_torch.core.sharded_index``)
+   on the mutate phase's 20k rows in four HNSW shards (m=16, efc=64 each,
+   ``build_shards`` + ``stack_shards``, which is ``shard_dataset``), four
+   shard slots on the one card: ``W4``, ``W1`` and ``W4_both`` on
+   ``fused`` and ``torch`` and ``W4`` on ``unfused`` over the 1,024
+   queries in batches of 128.  Each kernel engine must equal ``torch``
+   (ids, dists, every batch's totals), each batch must launch exactly its
+   (engine, spec)'s kernels, each kernel must be bit-equal to its plain
+   version on the shard inputs the run captured; recall@10 against exact
+   ground truth over the 20k rows.  The merged top-efs must equal a host
+   merge of the four shards' own ``_search_batch`` pools; ``max_hops=8``
+   gives ``iters <= 8``; a bucket-padded batch's totals equal the
+   unpadded batch's; ``router="finger"`` raises ``NotImplementedError``.
+   ``ShardedIndexSession`` behind ``ServeFrontend`` (ladder 1, 8, 32,
+   128) on the serve phase's ragged stream: each request equal to a direct
+   sharded search, 0 first uses after warmup.  A durable
+   ``MutableShardedAnnIndex`` over the same four shard graphs behind the
+   worker: 1,024 fresh rows in chunks of 64, 512 deletes, served until a
+   staggered background merge has swapped in; at most one shard merges
+   at a time, 0 deleted-id leaks, 0 first uses across the swap,
+   ``shard.search.1`` armed degrades to the other three shards'
+   composition, ``recover`` from the parent manifest equals the live
+   index.  Printed: build seconds and a 128-row batch's wall ms and idle
+   share at S=4 beside a single 20k index's.
+4d. ``launch`` — ``python -m repro_torch.launch.serve`` with
+   ``LAUNCH_ARGS`` (5,000 x 128, 64 requests, ``--autotune``) as a
+   subprocess on the card: exit 0, ``recompiles_after_warmup=0``; printed
+   the screen's seconds, the controller's switches, failures and final
+   spec.
 5. ``router_sweep`` — every registered router on every engine on
    benchmarks/bench_engine.py's ``engine_router_sweep`` setting
    (sift-synth 4000 x 128, HNSW m=16, efc=128, k=10, efs=64): dist_calls
@@ -101,7 +130,7 @@ Phases, each printing one JSON line:
    ``retrieval_cand`` (1M unit-norm 128-d candidates, 1 and 32 queries)
    through ``make_retrieval_step`` and the ``l2_distance`` kernel in ip
    mode, whose top-100 must equal the step's up to ties; a CRouting-HNSW
-   index with ``metric="ip"`` (m=16, efc=96) over 50k candidates drawn as
+   index with ``metric="ip"`` (m=16, efc=96) over 25k candidates drawn as
    the example draws them, searched at k=100, efs=200 with every spec of
    ``IP_SPECS`` on its engines (recall@100 against brute force).
 8. ``timing``  — each kernel, its plain version and its bound on inputs
@@ -131,7 +160,7 @@ Phases, each printing one JSON line:
    kernel's time on the same inputs with every lane masked, which reads
    no row (``no_rows_device_ms``).
 
-For phases 3, 4, 6 and the index of 7 each kernel engine must launch
+For phases 3, 4, 4c, 6 and the index of 7 each kernel engine must launch
 exactly the kernels its (engine, spec) runs (``expected_kernels``; every
 one at least once, no other), and must agree with the torch engine:
 identical ids and per-query counters (dist_calls, est_calls, hops,
@@ -155,6 +184,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 SPECS = {"W4": dict(k=10, efs=100, router="crouting", beam_width=4),
@@ -200,7 +230,9 @@ def check(cond, msg):
 
 
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    """Print one phase line, with the seconds since the script started."""
+    print(json.dumps({**obj, "script_secs": time.perf_counter() - T_START}),
+          flush=True)
 
 
 def nvidia_smi(query: str) -> str:
@@ -1470,13 +1502,15 @@ def search_all(mi, queries, spec):
             SearchStats.merge([o[2] for o in outs]))
 
 
-def mutate_traffic(mi, fe, queries, fresh, rng):
+def mutate_traffic(mi, fe, queries, fresh, rng, started, merging, wait):
     """Ragged requests through the worker thread, interleaved with inserts
     of ``fresh`` in chunks and uniform deletes, then served back to back
     with ``IN_FLIGHT`` requests in flight until a background merge has
-    completed, and ``AFTER_MERGE`` more at that load.  Returns (futures with their submit
-    time and the ids deleted before it, done times, the external ids and
-    live mask of base + fresh rows, the merge's window)."""
+    completed, and ``AFTER_MERGE`` more at that load.  ``started()``,
+    ``merging()`` and ``wait()`` read and join the index's background
+    merge.  Returns (futures with their submit time and the ids deleted
+    before it, done times, the external ids and live mask of base + fresh
+    rows, the merge's window)."""
     from collections import deque
     import numpy as np
     from repro_torch.fault import RetryPolicy
@@ -1522,14 +1556,14 @@ def mutate_traffic(mi, fe, queries, fresh, rng):
         mi.delete(kill)
         live[kill] = False
         dead.update(int(x) for x in kill)
-        if window[0] is None and mi._merge_thread is not None:
+        if window[0] is None and started():
             window[0] = time.perf_counter()
     check(window[0] is not None, "mutate: no background merge started")
     # then the same load until the merge has swapped in, and after it:
     # latency beside the merge against latency without it
-    serve(lambda: mi.merges_completed == 0 and mi._merge_thread.is_alive())
+    serve(merging)
     window[1] = time.perf_counter()
-    mi.wait_for_merge()
+    wait()
     n = len(futs)
     serve(lambda: len(futs) < n + AFTER_MERGE)
     return futs, done, live, window
@@ -1582,8 +1616,12 @@ def mutate_phase(ds, main_launches):
         ops.reset_launch_counts()
         fe.start(poll_s=0.001)
         t0 = time.perf_counter()
-        futs, done, live, window = mutate_traffic(mi, fe, ds.queries, fresh,
-                                                  rng)
+        futs, done, live, window = mutate_traffic(
+            mi, fe, ds.queries, fresh, rng,
+            started=lambda: mi._merge_thread is not None,
+            merging=lambda: (mi.merges_completed == 0
+                             and mi._merge_thread.is_alive()),
+            wait=mi.wait_for_merge)
         fe.stop()
         results = [f.result(timeout=600) for f, _, _ in futs]
         sync(dev)
@@ -1800,6 +1838,439 @@ def crash_sweep(index, fresh, queries, spec, tmp):
     return out
 
 
+# --- phases 4c and 4d: the sharded index, the serving launcher ---------------
+# the sharded phase: the mutate phase's 20k rows in four shards, four shard
+# slots on the one card; (spec, engine) runs, the kernel engines first
+SHARDS = 4
+SHARDED_RUNS = (("W4", "fused"), ("W4", "unfused"), ("W4", "torch"),
+                ("W1", "fused"), ("W1", "torch"),
+                ("W4_both", "fused"), ("W4_both", "torch"))
+# its live part: a shard merges once its delta holds this share of
+# DELTA_CAPACITY (about 200 of the ~256 fresh rows each shard takes)
+SHARD_MERGE_THRESHOLD = 0.2
+# the launch phase: the reference CLI's entry point on the card
+LAUNCH_ARGS = ("--n-base", "5000", "--dim", "128", "--requests", "64",
+               "--m", "16", "--efc", "64", "--autotune")
+
+
+def batched(search, queries, spec, **kw):
+    """``search`` over ``queries`` in batches of ``BATCH``: (ids, dists,
+    each batch's stats, the kernel set each batch launched on this
+    thread)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    ids, dists, stats, kernels = [], [], [], []
+    for s in range(0, len(queries), BATCH):
+        before = ops.thread_launch_counts()
+        i, d, st = search(queries[s: s + BATCH], spec, **kw)
+        after = ops.thread_launch_counts()
+        ids.append(i)
+        dists.append(d)
+        stats.append(st)
+        kernels.append({k for k in after if after[k] > before[k]})
+    return np.concatenate(ids), np.concatenate(dists), stats, kernels
+
+
+def stats_tuple(st):
+    """Every field of a batch-total SearchStats, for equality checks."""
+    return (int(st.dist_calls), int(st.est_calls), int(st.rerank_calls),
+            int(st.sq8_calls), int(st.hops), int(st.iters), st.router,
+            tuple(sorted((k, int(v)) for k, v in st.extra.items())),
+            int(st.shards_failed), bool(st.degraded))
+
+
+def host_merge(parts, k):
+    """The stable host top-k of per-shard (ids, dists) pools."""
+    import numpy as np
+    all_ids = np.concatenate([p[0] for p in parts], axis=1)
+    all_d = np.concatenate([p[1] for p in parts], axis=1)
+    order = np.argsort(all_d, axis=1, kind="stable")[:, :k]
+    return (np.take_along_axis(all_ids, order, axis=1),
+            np.take_along_axis(all_d, order, axis=1))
+
+
+def sharded_runs(idx, queries, gt, main_launches):
+    """Every (spec, engine) of ``SHARDED_RUNS`` over ``queries``, counts
+    from 0 around each; each kernel engine equal to torch (ids, dists,
+    every batch's counters), each batch exactly its kernels, each kernel
+    bit-equal to its plain version on the inputs the run captured."""
+    import numpy as np
+    import torch
+    from repro_torch.core.spec import SearchSpec
+    from repro_torch.data.vectors import recall_at_k
+    from repro_torch.kernels import ops
+    out, runs, checked = {}, {}, []
+    for name, engine in SHARDED_RUNS:
+        spec = SearchSpec(engine=engine, **SPECS[name])
+        idx.search(queries[:BATCH], spec)       # the step's setup, off the clock
+        capture = CaptureInputs()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with capture:
+            ids, dists, stats, kernels = batched(idx.search, queries, spec)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        want = expected_kernels(engine, SPECS[name])
+        check(all(k == want for k in kernels),
+              f"sharded/{name}: a {engine} batch launched "
+              f"{sorted(set().union(*kernels))}, expected {sorted(want)}")
+        if engine != "torch":
+            for k, v in launches.items():
+                main_launches[k] = main_launches.get(k, 0) + v
+            checked += [dict(c, spec=name, engine=engine)
+                        for c in captured_equal(capture)]
+        runs[name, engine] = (ids, dists, [stats_tuple(s) for s in stats])
+        out[f"{name}/{engine}"] = {
+            "secs": secs, "qps": len(queries) / secs,
+            "recall@10": recall_at_k(ids, gt, 10),
+            "iters_per_batch": float(np.mean([s.iters for s in stats])),
+            "dist_calls_per_query": sum(int(s.dist_calls) for s in stats)
+            / len(queries), "launches": launches}
+    for (name, engine), (ids, dists, st) in runs.items():
+        if engine == "torch":
+            continue
+        p_ids, p_d, p_st = runs[name, "torch"]
+        same = (np.array_equal(ids, p_ids) and np.array_equal(dists, p_d)
+                and st == p_st)
+        out[f"{name}/{engine}"]["equals_torch"] = same
+        check(same, f"sharded/{name}: {engine} differs from torch (ids, "
+              "dists or a batch's counters)")
+    return out, checked
+
+
+def sharded_edges(idx, arrays, queries, dev):
+    """The merge against a host merge of the four shards' own pools, the
+    hop budget, a bucket-padded batch's totals and the finger rejection."""
+    import numpy as np
+    import torch
+    from repro_torch.core.search import _search_batch
+    from repro_torch.core.spec import SearchSpec
+    spec = SearchSpec(engine="fused", **SPECS["W4"])
+    q = queries[:BATCH]
+    efs = spec.efs
+    ids, dists, _ = idx.search(q, spec.replace(k=efs))
+    cfg = spec.replace(metric=arrays.metric, use_hierarchy=False)
+    qt = torch.as_tensor(q, device=dev)
+    parts = []
+    for s, shard in enumerate(idx._placed):
+        res = _search_batch(shard, qt, np.float32(arrays.cos_theta), cfg)
+        loc = res.ids.cpu().numpy()
+        parts.append((np.where(loc < arrays.ns, loc + shard["offset"], -1),
+                      res.dists.cpu().numpy()))
+    h_ids, h_d = host_merge(parts, efs)
+    merge_equal = bool(np.array_equal(ids, h_ids)
+                       and np.array_equal(dists, h_d))
+    _, _, st8 = idx.search(q, spec.replace(max_hops=8))
+    n = 100
+    padded = np.zeros_like(q)
+    padded[:n] = q[:n]
+    p_ids, p_d, p_st = idx.search(padded, spec, valid=np.arange(BATCH) < n)
+    r_ids, r_d, r_st = idx.search(q[:n], spec)
+    pad_equal = (np.array_equal(p_ids[:n], r_ids)
+                 and stats_tuple(p_st) == stats_tuple(r_st))
+    try:
+        idx.search(q[:2], SearchSpec(router="finger", engine="fused"))
+        finger = "accepted"
+    except NotImplementedError:
+        finger = "NotImplementedError"
+    out = {"merge_equals_host_merge": merge_equal,
+           "max_hops_8_iters": int(st8.iters),
+           "padded_totals_equal": pad_equal, "finger": finger}
+    check(merge_equal, "sharded: the merge differs from a host merge of "
+          "the shards' pools")
+    check(st8.iters <= 8, f"sharded: max_hops=8 ran {st8.iters} iterations")
+    check(pad_equal, "sharded: a padded batch's totals differ from the "
+          "unpadded batch's")
+    check(finger == "NotImplementedError",
+          "sharded: router='finger' was not rejected")
+    return out
+
+
+def sharded_serve(idx, queries, main_launches):
+    """``ShardedIndexSession`` behind the frontend on the serve phase's
+    ragged stream: each request equal to a direct sharded search of its
+    rows, each dispatch exactly its kernels, no first use after warmup."""
+    import numpy as np
+    import torch
+    from repro_torch.core.spec import SearchSpec
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeFrontend
+    spec = SearchSpec(engine="fused", **SPECS["W4"])
+    t0 = time.perf_counter()
+    fe = ServeFrontend(idx, spec, buckets=SERVE_BUCKETS)
+    warm_secs = time.perf_counter() - t0
+    warm = fe._base.engine.compile_count()
+    records = []
+    record_dispatches(fe, {"W4/fused": spec}, records)
+    stream = ragged_stream(len(queries), seed=11)
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    futs = []
+    for i, (lo, hi, k) in enumerate(stream):
+        futs.append(fe.submit(queries[lo:hi], k=k))
+        if i % 3 == 2:
+            fe.flush()
+    fe.flush()
+    got = [f.result(timeout=600) for f in futs]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for k, v in launches.items():
+        main_launches[k] = main_launches.get(k, 0) + v
+    dispatches = check_dispatch_kernels("sharded serve", records)
+    after = fe._base.engine.compile_count()
+    summ = fe.telemetry.summary()
+    # a request's rows search independently of the other rows of its
+    # dispatch: each equals a direct search of its own rows
+    bad = [i for i, ((lo, hi, k), r) in enumerate(zip(stream, got))
+           if not all(np.array_equal(a, b) for a, b in zip(
+               r[:2], idx.search(queries[lo:hi], spec.replace(k=k))[:2]))]
+    out = {"stream_requests": len(stream), "warmup_secs": warm_secs,
+           "secs": secs,
+           "dispatches": dispatches, "first_uses_warm": warm,
+           "first_uses_after": after, "requests_unequal_to_direct": bad[:5],
+           "launches": launches, **serve_digest(summ)}
+    check(not bad, f"sharded serve: {len(bad)} requests differ from a "
+          "direct sharded search")
+    check(summ["recompiles_after_warmup"] == 0 and after == warm,
+          f"sharded serve: first uses on the request path ({warm} -> "
+          f"{after})")
+    return out
+
+
+def sharded_mutate(graphs, profiles, queries, fresh, main_launches, tmp,
+                   dev):
+    """A durable ``MutableShardedAnnIndex`` over the four shard graphs
+    behind the worker: ``INSERT_ROWS`` fresh rows in chunks, ``DELETES``
+    deletes, served until a staggered background merge has swapped in;
+    at most one shard merges at a time, no deleted id returned, no first
+    use across the swap, ``shard.search.1`` armed degrades to the other
+    shards' composition, and ``recover`` equals the live index."""
+    import os
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch import fault
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.spec import SearchSpec
+    from repro_torch.kernels import ops
+    from repro_torch.mutate import MutableShardedAnnIndex, MutateConfig
+    from repro_torch.serve import ServeFrontend
+    spec = SearchSpec(engine="fused", **SPECS["W4"])
+    cfg = MutateConfig(graph="hnsw", graph_kw=dict(m=16, efc=64),
+                       delta_capacity=DELTA_CAPACITY,
+                       merge_threshold=SHARD_MERGE_THRESHOLD,
+                       auto_merge="background", wal_fsync="every")
+    d = os.path.join(tmp, "sharded")
+    t0 = time.perf_counter()
+    mi = MutableShardedAnnIndex(
+        [AnnIndex(graph=g, profile=p, device=dev)
+         for g, p in zip(graphs, profiles)],
+        config=cfg, spec=spec, durable_dir=d)
+    create_secs = time.perf_counter() - t0
+    fe = ServeFrontend(mi, spec, buckets=SERVE_BUCKETS)
+    warm = mi.compile_count()
+    records = []
+    record_dispatches(fe, {"W4/fused": spec}, records)
+    # a watcher samples how many shard merges run at once
+    most, stop = [0], threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            most[0] = max(most[0], sum(t.is_alive() for t in
+                                       list(mi._merge_threads.values())))
+            time.sleep(0.005)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    fe.start(poll_s=0.001)
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(19)
+    futs, done, live, window = mutate_traffic(
+        mi, fe, queries, fresh, rng, started=lambda: bool(mi._merge_threads),
+        merging=lambda: sum(mi.epochs) == 0 and any(
+            t.is_alive() for t in list(mi._merge_threads.values())),
+        wait=mi.wait_for_merges)
+    fe.stop()
+    results = [f.result(timeout=600) for f, _, _ in futs]
+    stop.set()
+    watcher.join(timeout=10)
+    torch.cuda.synchronize()
+    traffic_secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    for k, v in launches.items():
+        main_launches[k] = main_launches.get(k, 0) + v
+    dispatches = check_dispatch_kernels("sharded mutate", records)
+    leaks = sum(int(np.isin(r[0], dead).sum())
+                for r, (_, _, dead) in zip(results, futs))
+    first_uses_after = mi.compile_count()
+    summ = fe.telemetry.summary()
+    check(np.array_equal(np.sort(np.concatenate([sh.live_ids()
+                                                 for sh in mi.shards])),
+                         np.flatnonzero(live)),
+          "sharded mutate: the index's live ids differ from the trace's")
+
+    # shard 1 fails: the other three shards' composition, degraded
+    q = queries[:BATCH]
+    fault.arm("shard.search.1", kind="raise")
+    try:
+        ids, dists, st = mi.search(q, spec)
+    finally:
+        fault.disarm()
+    others = host_merge([mi.shards[s].search(q, spec)[:2]
+                         for s in range(SHARDS) if s != 1], spec.k)
+    degraded_equal = (st.degraded and st.shards_failed == 1
+                      and np.array_equal(ids, np.where(
+                          np.isfinite(others[1]), others[0], -1))
+                      and np.array_equal(dists, others[1]))
+    # recover from the parent manifest: equal routing, live ids, searches
+    live_r = batched(mi.search, queries, spec)
+    mi.close()
+    t0 = time.perf_counter()
+    back = MutableShardedAnnIndex.recover(d, config=cfg, spec=spec,
+                                          device=dev)
+    recover_secs = time.perf_counter() - t0
+    back_r = batched(back.search, queries, spec)
+    recovered_equal = (
+        all(np.array_equal(a.live_ids(), b.live_ids())
+            for a, b in zip(mi.shards, back.shards))
+        and np.array_equal(live_r[0], back_r[0])
+        and np.array_equal(live_r[1], back_r[1]))
+    back.close()
+    out = {"n_start": int(sum(g.n for g in graphs)),
+           "inserted": INSERT_ROWS, "insert_chunk": INSERT_CHUNK,
+           "deleted": DELETES, "delta_capacity": DELTA_CAPACITY,
+           "merge_threshold": SHARD_MERGE_THRESHOLD, "wal_fsync": "every",
+           "durable_create_secs": create_secs, "traffic_secs": traffic_secs,
+           "requests": len(futs), "merge_window_secs": window[1] - window[0],
+           "epochs": list(mi.epochs), "most_merging_at_once": most[0],
+           "merge": {s: sh.last_merge for s, sh in enumerate(mi.shards)
+                     if sh.last_merge},
+           "dispatches": dispatches, "deleted_leaks": leaks,
+           "first_uses_warm": warm, "first_uses_after": first_uses_after,
+           "serve": serve_digest(summ), "launches": launches,
+           "degraded_equals_three_shards": bool(degraded_equal),
+           "recover_secs": recover_secs,
+           "recovered_equals_live": bool(recovered_equal)}
+    check(sum(mi.epochs) >= 1, "sharded mutate: no merge swapped in")
+    check(most[0] <= 1, f"sharded mutate: {most[0]} shards merged at once")
+    check(leaks == 0, f"sharded mutate: {leaks} results held deleted ids")
+    check(summ["recompiles_after_warmup"] == 0 and first_uses_after == warm,
+          f"sharded mutate: first uses on the request path across the swap "
+          f"({warm} -> {first_uses_after})")
+    check(degraded_equal, "sharded mutate: shard.search.1 did not degrade "
+          "to the other shards' composition")
+    check(recovered_equal, "sharded mutate: the recovered index differs "
+          "from the live one")
+    return out
+
+
+def sharded_phase(ds, main_launches):
+    """The sharded index on the card: the first ``MUTATE_BASE`` rows of
+    the hnsw phase's data in ``SHARDS`` shards (HNSW m=16, efc=64 each),
+    four shard slots on the one H100; its searches, edge cases, serving
+    and a durable mutable sharded index (see the module docstring)."""
+    import tempfile
+    import numpy as np
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.sharded_index import (ShardedAnnIndex,
+                                                build_shards, stack_shards)
+    from repro_torch.core.spec import SearchSpec
+    from repro_torch.data.vectors import VectorDataset, exact_ground_truth
+    from repro_torch.launch.mesh import make_local_mesh
+    base = ds.base[:MUTATE_BASE]
+    t0 = time.perf_counter()
+    # shard_dataset is stack_shards(*build_shards(...)): the graphs are kept
+    # for the mutable index over the same four blocks
+    graphs, profiles = build_shards(base, SHARDS, graph="hnsw", m=16, efc=64)
+    arrays = stack_shards(graphs, profiles)
+    build_secs = time.perf_counter() - t0
+    mesh = make_local_mesh(SHARDS, "shards")
+    idx = ShardedAnnIndex(arrays, mesh, spec=SearchSpec(**SPECS["W4"]))
+    dev = mesh.devices[0]
+    gt = exact_ground_truth(VectorDataset("first20k", base, ds.queries),
+                            k=10, device=dev)
+    runs, checked = sharded_runs(idx, ds.queries, gt, main_launches)
+    edges = sharded_edges(idx, arrays, ds.queries, dev)
+    serve = sharded_serve(idx, ds.queries, main_launches)
+    t0 = time.perf_counter()
+    single = AnnIndex.build(base, graph="hnsw", m=16, efc=64)
+    single_secs = time.perf_counter() - t0
+    spec = SearchSpec(engine="fused", **SPECS["W4"])
+    prof = {"sharded_S4": profile_batch(idx, ds.queries, spec),
+            "single_20k": profile_batch(single, ds.queries, spec)}
+    del single
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        mutate = sharded_mutate(graphs, profiles, ds.queries,
+                                fresh_rows(ds.base.shape[1]), main_launches,
+                                tmp, dev)
+    emit({"phase": "sharded", "n": MUTATE_BASE, "dim": base.shape[1],
+          "shards": SHARDS, "ns": arrays.ns, "m": 16, "efc": 64,
+          "slots": [str(x) for x in mesh.devices],
+          "build_secs": build_secs, "single_build_secs": single_secs,
+          "theta_star": float(np.degrees(np.arccos(arrays.cos_theta))),
+          "runs": runs, "kernels_bit_equal": checked, "edges": edges,
+          "serve": serve, "batch_profile": {
+              k: {kk: v[kk] for kk in ("wall_ms", "device_busy_ms",
+                                       "device_idle_share",
+                                       "kernel_launches", "port_kernels")}
+              for k, v in prof.items()},
+          "mutate": mutate,
+          "cuts": "n 1M -> 20k (the mutate phase's rows) in 4 shards of "
+                  "5k on one card; m 32 -> 16, efc 256 -> 64 (host HNSW "
+                  "builder)"})
+
+
+def launch_phase():
+    """``python -m repro_torch.launch.serve`` (``LAUNCH_ARGS``) as a
+    subprocess on the card: exit 0, ``recompiles_after_warmup=0``, the
+    controller's switches, failures, final spec and screen seconds."""
+    import os
+    import re
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", *LAUNCH_ARGS],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+    secs = time.perf_counter() - t0
+    out = proc.stdout
+
+    def grab(pattern):
+        m = re.search(pattern, out, re.M)
+        return m.groups() if m else None
+
+    result = grab(r"^router=crouting: recall@10=([\d.]+) QPS=(\d+) "
+                  r"p50=([\d.]+)ms p95=([\d.]+)ms p99=([\d.]+)ms "
+                  r"recompiles_after_warmup=(\d+)$")
+    tuned = grab(r"^autotune: (\d+) switches, (\d+) failures, final spec "
+                 r"(\S+)$")
+    screen = grab(r"^autotune attached in ([\d.]+)s: incumbent (\S+) "
+                  r".*, (\d+) quarantined\)$")
+    emit({"phase": "launch", "args": list(LAUNCH_ARGS), "rc": proc.returncode,
+          "secs": secs,
+          "recall@10": float(result[0]) if result else None,
+          "qps": int(result[1]) if result else None,
+          "p50_ms": float(result[2]) if result else None,
+          "p99_ms": float(result[4]) if result else None,
+          "recompiles_after_warmup": int(result[5]) if result else None,
+          "screen_secs": float(screen[0]) if screen else None,
+          "screen_incumbent": screen[1] if screen else None,
+          "quarantined": int(screen[2]) if screen else None,
+          "switches": int(tuned[0]) if tuned else None,
+          "failures": int(tuned[1]) if tuned else None,
+          "final_spec": tuned[2] if tuned else None,
+          "stderr_tail": proc.stderr[-2000:] if proc.returncode else ""})
+    check(proc.returncode == 0, f"launch: exit {proc.returncode}")
+    check(result is not None and int(result[5]) == 0,
+          "launch: recompiles_after_warmup is not 0")
+    check(tuned is not None, "launch: no autotune line")
+
+
 def router_sweep(main_launches):
     """The port's counterpart of ``benchmarks/bench_engine.py``'s
     ``engine_router_sweep``: every registered router on every engine at
@@ -1859,8 +2330,10 @@ def router_sweep(main_launches):
 # --- phase 7: the dlrm-mlperf retrieval path ---------------------------------
 VOCAB_CAP = 4_000_000     # 24.07M table rows, 12.3 GB fp32 (full: 96 GB)
 # the example's n_cand is 100k; on the H100 machine's host its index took
-# 657 s to build and the whole script 994 s, so the index is cut to 50k
-ANN_CANDIDATES = 50_000
+# 657 s to build and the whole script 994 s, so the index was cut to 50k;
+# at 50k it took 209 s of a 1,064 s script once the sharded and launch
+# phases came (PR 19), so it is cut to 25k
+ANN_CANDIDATES = 25_000
 ANN_QUERIES = 1024
 
 
@@ -2005,8 +2478,9 @@ def retrieval_phase(dev, main_launches, captures):
           "build_secs": build_secs,
           "levels": idx.graph.build_stats["levels"],
           "theta_star": idx.profile.theta_star, "queries": ANN_QUERIES,
-          "cuts": "n 100k (the example) -> 50k, and not retrieval_cand's "
-                  "1M: the host HNSW builder"})
+          "cuts": "n 100k (the example) -> 25k (50k until the sharded "
+                  "and launch phases came), and not retrieval_cand's 1M: "
+                  "the host HNSW builder"})
     search_phase("retrieval", idx, qs, gt.cpu().numpy(), main_launches,
                  captures=captures, specs=IP_SPECS,
                  unfused_specs=IP_UNFUSED_SPECS, k=k)
@@ -2582,7 +3056,12 @@ def main() -> int:
     # 4b. mutate: live mutation with its WAL on an NSG of the same data,
     # the crash sweep
     mutate_phase(ds, main_launches)
-    del nsg_idx, ds
+    del nsg_idx
+    # 4c. sharded: the mutate phase's rows in four shards on the one card;
+    # 4d. launch: the serving entry point with the autotune controller
+    sharded_phase(ds, main_launches)
+    launch_phase()
+    del ds
 
     # 5. every router on every engine beside BENCH_engine.json
     router_sweep(main_launches)

@@ -24,9 +24,15 @@ the ``sq8_distance`` kernel, then an exact rerank through
 ``gather_distance`` only for candidates that are expanded or returned).
 ``"angle"`` and ``"both"`` need a pruning router.
 
-The fields split into two cost classes: engine-shaping fields key the
-engine cache (``canonical()``), request-only fields (``k``/``cos_theta``)
-do not.
+The fields split into two cost classes, and ``canonical()`` is the
+authority on which is which (the autotune controller derives its knob cost
+classes from it, ``repro_torch.autotune.space``): engine-shaping fields key
+the engine cache, request-only fields (``k``/``cos_theta``) do not.
+``KNOB_DOMAINS``, ``REQUEST_ONLY_FIELDS`` and ``STRUCTURAL_FIELDS`` put
+every field in exactly one class.
+
+``SearchStats`` carries per-query ``[B]`` arrays on the single-index path
+and batch totals on the sharded path (``merge`` folds both kinds).
 """
 from __future__ import annotations
 
@@ -41,6 +47,22 @@ ESTIMATES = ("exact", "angle", "sq8", "both")
 BEAM_PRUNE_POLICIES = ("best", "all")
 
 _K_DEFAULT = 10
+
+# Enumerable knob domains (the autotune search space,
+# repro_torch.autotune.space).  The categorical fields enumerate exactly;
+# the integer fields are open-ended, so these ladders are recommended
+# discrete rungs, not validation, chosen to roughly double the engine's
+# cost a step.  Router names live in the registry
+# (repro_torch.core.routers.available_routers), not here.
+EFS_LADDER = (32, 48, 64, 96, 128, 192)
+BEAM_LADDER = (1, 2, 4, 8)
+KNOB_DOMAINS: Dict[str, tuple] = {
+    "efs": EFS_LADDER,
+    "beam_width": BEAM_LADDER,
+    "engine": ENGINES,
+    "estimate": ESTIMATES,
+    "beam_prune": BEAM_PRUNE_POLICIES,
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,6 +122,39 @@ class SearchSpec:
         return dataclasses.replace(self, **changes)
 
 
+def is_request_only(field: str) -> bool:
+    """True iff changing ``field`` never shapes the engine.
+
+    Derived from ``canonical()`` itself, not from a parallel list that
+    could drift: a field is request-only exactly when perturbing it leaves
+    the canonical form (the engine cache key) unchanged.  The serving
+    frontend and the autotune controller's knob cost classes rest on it.
+    """
+    base = SearchSpec()
+    probe = {"k": base.k + 1, "cos_theta": 0.25,
+             "efs": base.efs + 8, "beam_width": base.beam_width + 1,
+             "max_hops": base.max_hops + 1, "engine": "torch",
+             "estimate": "sq8", "beam_prune": "all", "router": "crouting",
+             "metric": "ip", "use_hierarchy": not base.use_hierarchy}
+    if field not in probe:
+        raise KeyError(f"unknown SearchSpec field {field!r}")
+    return base.replace(**{field: probe[field]}).canonical() == \
+        base.canonical()
+
+
+REQUEST_ONLY_FIELDS = ("k", "cos_theta")
+assert all(is_request_only(f) for f in REQUEST_ONLY_FIELDS)
+
+# Engine-shaping fields that are not autotune knobs: ``router`` names a
+# registry entry the operator picks, ``metric``/``use_hierarchy`` are index
+# properties the graph overwrites, and ``max_hops`` is a hard budget, not
+# a quality/cost dial.  With KNOB_DOMAINS and REQUEST_ONLY_FIELDS this puts
+# every SearchSpec field in exactly one cost class.
+STRUCTURAL_FIELDS = ("router", "metric", "max_hops", "use_hierarchy")
+assert not (set(STRUCTURAL_FIELDS) & set(KNOB_DOMAINS)
+            | set(STRUCTURAL_FIELDS) & set(REQUEST_ONLY_FIELDS))
+
+
 def resolve_search_spec(spec: Optional["SearchSpec"],
                         default: "SearchSpec", owner: str) -> "SearchSpec":
     """Validate a per-call ``spec`` (or fall back to ``default``).
@@ -125,11 +180,12 @@ _COUNTERS = ("dist_calls", "est_calls", "rerank_calls", "sq8_calls", "hops")
 
 @dataclasses.dataclass
 class SearchStats:
-    """Typed per-search statistics: per-query ``[B]`` int arrays plus the
-    batch-level hop-loop iteration count.  ``extra`` holds per-router
-    ``[B]`` counters in registry-declared order
-    (``Router.extra_counters``, e.g. the finger router's
-    ``finger_est_calls``)."""
+    """Typed search statistics.  On the single-index path the counters are
+    per-query ``[B]`` int arrays; on the sharded path they are batch totals
+    reduced over the shards (``iters`` the maximum over shards, the
+    straggler's count).  ``extra`` holds per-router counters in
+    registry-declared order (``Router.extra_counters``, e.g. the finger
+    router's ``finger_est_calls``)."""
 
     dist_calls: np.ndarray       # exact fp32 distance evaluations
     est_calls: np.ndarray        # router estimate evaluations
@@ -139,6 +195,10 @@ class SearchStats:
     iters: int                   # batch-level hop-loop iterations
     router: str = "none"
     extra: Dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
+    # graceful degradation: a host-composed sharded search that lost
+    # shards still resolves, with the survivors' pool and these fields set
+    shards_failed: int = 0
+    degraded: bool = False
 
     @classmethod
     def from_result(cls, res, router: str = "none") -> "SearchStats":
@@ -153,23 +213,31 @@ class SearchStats:
     @classmethod
     def merge(cls, stats_list) -> "SearchStats":
         """Fold stats from many dispatches into one record: per-query
-        counters (router extras included) concatenate, ``iters`` is the
-        max, ``router`` must agree."""
+        array counters (router extras included) concatenate, scalar totals
+        (the sharded path's) add, ``iters`` is the max, ``shards_failed``
+        adds, ``degraded`` ORs, ``router`` must agree."""
         stats_list = list(stats_list)
         if not stats_list:
             raise ValueError("SearchStats.merge: empty stats list")
         routers = {s.router for s in stats_list}
         if len(routers) > 1:
             raise ValueError(f"SearchStats.merge: mixed routers {routers}")
+
+        def comb(vals):
+            if all(np.ndim(v) > 0 for v in vals):
+                return np.concatenate([np.asarray(v) for v in vals])
+            return sum(int(np.sum(v)) for v in vals)
+
         keys = set().union(*(s.extra for s in stats_list))
         return cls(
-            **{f: np.concatenate([getattr(s, f) for s in stats_list])
+            **{f: comb([getattr(s, f) for s in stats_list])
                for f in _COUNTERS},
             iters=max(int(s.iters) for s in stats_list),
             router=stats_list[0].router,
-            extra={k: np.concatenate([s.extra[k] for s in stats_list
-                                      if k in s.extra])
-                   for k in sorted(keys)})
+            extra={k: comb([s.extra[k] for s in stats_list if k in s.extra])
+                   for k in sorted(keys)},
+            shards_failed=sum(int(s.shards_failed) for s in stats_list),
+            degraded=any(s.degraded for s in stats_list))
 
     def summary(self) -> dict:
         """JSON-ready digest (per-query means)."""
@@ -178,4 +246,6 @@ class SearchStats:
             out[f] = round(float(np.mean(getattr(self, f))), 1)
         for k, v in self.extra.items():
             out[k] = round(float(np.mean(v)), 1)
+        out["shards_failed"] = int(self.shards_failed)
+        out["degraded"] = bool(self.degraded)
         return out

@@ -12,9 +12,8 @@ injected or operational fault from a programming bug:
   the old version — so seeing this means the bytes on disk were damaged
   after publication.
 * ``DegradedSearchError`` — every shard of a host-composed sharded search
-  failed; there is no surviving pool to answer from.  Raised by the
-  sharded stack, which the port does not have yet; kept so the public
-  names match the JAX package's.
+  failed; there is no surviving pool to answer from
+  (``MutableShardedAnnIndex.search``).
 * ``MergeQuarantinedError`` — the delta segment is full while background
   merges are quarantined (the retry budget was exhausted); the mutation is
   refused as typed backpressure rather than risking a poisoned index.

@@ -2,27 +2,33 @@
 
 A cut-down copy of ``repro.fault.failpoints`` (the port imports nothing of
 the JAX package) holding what the port uses.  A *failpoint* is a named
-call site threaded through the serving, mutation, persistence and
-durability paths (``DECLARED_SITES``).  Production code calls
+call site threaded through the serving, sharding, mutation, persistence,
+durability and autotune paths (``DECLARED_SITES``).  Production code calls
 ``hit(site)`` at each one; with nothing armed that is a single module-flag
 check and an immediate return.  Tests and the crash sweeps arm sites with
 a ``FaultSpec`` naming *when* to fire (explicit hit indices, or every hit,
 capped by ``max_fires``) and *what* to do:
 
 * ``raise``    — raise ``FaultInjected`` (a process "crash" at that site);
+* ``delay``    — sleep ``delay_s`` then continue (stragglers, timeouts);
 * ``corrupt``/``truncate`` — return the kind string; the site applies the
   damage itself (only sites that own bytes — ``index.save.write``,
   ``checkpoint.write``, ``wal.append`` — honor these; everywhere else an
   armed corrupt kind is a no-op).
+
+Sub-targeting: a site that fans out over numbered children (shards) calls
+``hit("shard.search", sub="1")``; arming ``shard.search`` fires on every
+child while ``shard.search.1`` fires on child 1 only.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from contextlib import contextmanager
 from typing import Dict, FrozenSet, Optional
 
-KINDS = ("raise", "corrupt", "truncate")
+KINDS = ("raise", "delay", "corrupt", "truncate")
 
 
 class FaultInjected(RuntimeError):
@@ -46,6 +52,7 @@ class FaultSpec:
     kind: str = "raise"
     hits: Optional[FrozenSet[int]] = None
     max_fires: Optional[int] = None
+    delay_s: float = 0.05
 
     def __post_init__(self):
         assert self.kind in KINDS, f"unknown fault kind {self.kind!r}"
@@ -78,11 +85,13 @@ _ACTIVE = False          # fast path: hit() is one bool check when disarmed
 # Every production failpoint site of the port, one name per ``hit(...)``
 # call site (the ``write_site=``/``rename_site=`` arguments of the
 # atomic-write helpers count: the literal lives at the caller).  Passive:
-# ``arm()`` accepts any name so tests can use scratch sites.  The JAX
-# package's sharding and autotune sites join when those modules are ported.
+# ``arm()`` accepts any name so tests can use scratch sites.  The same
+# names as the JAX package's.
 DECLARED_SITES = frozenset({
     "serve.dispatch",
     "serve.worker",
+    "shard.search",
+    "sharded.search",
     "mutate.merge.build",
     "mutate.merge.swap",
     "index.save.write",
@@ -92,6 +101,8 @@ DECLARED_SITES = frozenset({
     "wal.rotate",
     "checkpoint.write",
     "manifest.rename",
+    "autotune.step",
+    "autotune.probe",
 })
 
 
@@ -131,18 +142,27 @@ def scoped(schedule: Dict[str, FaultSpec]):
             disarm(site)
 
 
-def hit(site: str) -> Optional[str]:
+def hit(site: str, sub: Optional[str] = None) -> Optional[str]:
     """One pass through the failpoint ``site``.
 
     Disarmed (the common case): returns ``None`` after a single flag
     check.  Armed and scheduled to fire: ``raise`` kinds raise
-    ``FaultInjected``; data kinds (``corrupt``/``truncate``) return the
-    kind string for the call site to act on.
+    ``FaultInjected``; ``delay`` sleeps then returns ``"delay"``; data
+    kinds (``corrupt``/``truncate``) return the kind string for the call
+    site to act on.  ``sub`` checks ``f"{site}.{sub}"`` as well, most
+    specific first.
     """
     if not _ACTIVE:
         return None
     with _LOCK:
-        ent = _SITES.get(site)
+        ent = None
+        name = site
+        if sub is not None:
+            name = f"{site}.{sub}"
+            ent = _SITES.get(name)
+        if ent is None:
+            name = site
+            ent = _SITES.get(site)
         if ent is None:
             return None
         fire = ent.decide()
@@ -151,7 +171,10 @@ def hit(site: str) -> Optional[str]:
     if not fire:
         return None
     if spec.kind == "raise":
-        raise FaultInjected(site, index)
+        raise FaultInjected(name, index)
+    if spec.kind == "delay":
+        time.sleep(spec.delay_s)
+        return "delay"
     return spec.kind
 
 

@@ -1,0 +1,2 @@
+"""Launchers: shard slots (``mesh``) and the serving entry point
+(``python -m repro_torch.launch.serve``)."""

@@ -1,12 +1,12 @@
 """Live index mutation (DESIGN.md §9): delta segment + tombstones +
 background merge, served without downtime.  Merge failures retry with
 backoff and quarantine on exhaustion — see ``repro_torch.fault`` for the
-policy pieces.  The counterpart of ``repro.mutate``; the sharded
-``MutableShardedAnnIndex`` is not ported yet."""
+policy pieces.  The counterpart of ``repro.mutate``."""
 from repro_torch.fault import MergeQuarantinedError
 from repro_torch.mutate.delta import DeltaSegment, delta_scan_compile_count
 from repro_torch.mutate.index import (GRAPH_DEFAULTS, MutableAnnIndex,
                                       MutateConfig)
+from repro_torch.mutate.sharded import MutableShardedAnnIndex
 
 __all__ = [
     "DeltaSegment",
@@ -14,5 +14,6 @@ __all__ = [
     "GRAPH_DEFAULTS",
     "MergeQuarantinedError",
     "MutableAnnIndex",
+    "MutableShardedAnnIndex",
     "MutateConfig",
 ]

@@ -10,10 +10,11 @@ The counterpart of ``repro.serve``::
     ids, dists, stats = fut.result()
     print(fe.telemetry.summary())     # p50/p95/p99, QPS, per-bucket first uses
 
-See DESIGN.md §6 (serving frontend) and the README "Serving" section.  The
-sharded sessions of the JAX package are not ported yet.
+See DESIGN.md §6 (serving frontend) and the README "Serving" section.
 """
 from repro_torch.serve.backends import (MutableIndexSession,
+                                        MutableShardedIndexSession,
+                                        ShardedIndexSession,
                                         SingleIndexSession, make_session)
 from repro_torch.serve.bucketing import (DEFAULT_BUCKETS, bucket_for,
                                          pad_to_bucket, validate_buckets)
@@ -27,6 +28,6 @@ __all__ = [
     "RequestRejected", "QueueFull", "DeadlineExceeded", "WorkerFailure",
     "FrontendStopped",
     "DEFAULT_BUCKETS", "bucket_for", "pad_to_bucket", "validate_buckets",
-    "SingleIndexSession", "MutableIndexSession",
-    "make_session",
+    "SingleIndexSession", "ShardedIndexSession", "MutableIndexSession",
+    "MutableShardedIndexSession", "make_session",
 ]

@@ -100,7 +100,7 @@ class _Session:
 
 
 class ServeFrontend:
-    """Bucketed dynamic batcher over ``AnnIndex`` / ``MutableAnnIndex``."""
+    """Bucketed dynamic batcher over the port's four index types."""
 
     def __init__(self, index, spec: Optional[SearchSpec] = None, *,
                  buckets=DEFAULT_BUCKETS, max_pending_rows: int = 1024,
@@ -120,9 +120,7 @@ class ServeFrontend:
         self._wake = threading.Event()
         self._stopped = False                   # stop() called, no start() yet
         self.worker_error: Optional[BaseException] = None
-        # the autotune controller's hook (the JAX package's
-        # AutotuneDriver.attach); autotune is not ported yet
-        self.autotune = None
+        self.autotune = None        # AutotuneDriver.attach registers itself
         self._base = self._session(spec)
         if warmup:
             self.warmup()

@@ -139,7 +139,8 @@ def test_search_stats_merge_and_summary():
     assert list(m.rerank_calls) == [1, 0, 2] and list(m.sq8_calls) == [6, 8, 9]
     assert m.summary() == {"router": "crouting", "iters": 7,
                            "dist_calls": 2.7, "est_calls": 1.0,
-                           "rerank_calls": 1.0, "sq8_calls": 7.7, "hops": 2.3}
+                           "rerank_calls": 1.0, "sq8_calls": 7.7, "hops": 2.3,
+                           "shards_failed": 0, "degraded": False}
     with pytest.raises(ValueError):
         SearchStats.merge([a, stats([1], [0], [0], [0], [1], 1, "none")])
 
@@ -176,7 +177,12 @@ new = ["repro_torch.quant.sq8", "repro_torch.kernels.sq8_distance",
        "repro_torch.mutate", "repro_torch.mutate.delta",
        "repro_torch.mutate.index", "repro_torch.serve",
        "repro_torch.serve.bucketing", "repro_torch.serve.telemetry",
-       "repro_torch.serve.backends", "repro_torch.serve.frontend"]
+       "repro_torch.serve.backends", "repro_torch.serve.frontend",
+       "repro_torch.core.sharded_index", "repro_torch.mutate.sharded",
+       "repro_torch.launch", "repro_torch.launch.mesh",
+       "repro_torch.launch.serve", "repro_torch.autotune",
+       "repro_torch.autotune.space", "repro_torch.autotune.controller",
+       "repro_torch.autotune.proxy", "repro_torch.autotune.driver"]
 assert all(m in mods for m in new), (new, mods)
 import chip_smoke
 import importlib.util

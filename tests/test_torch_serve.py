@@ -379,15 +379,28 @@ def test_health_reports_frontend_and_backend(pair):
 # make_session
 # --------------------------------------------------------------------------
 def test_make_session_types(pair):
-    _, j, t = pair
+    from repro_torch.core.sharded_index import ShardedAnnIndex, shard_dataset
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.mutate import MutableShardedAnnIndex
+    from repro_torch.serve import (MutableShardedIndexSession,
+                                   ShardedIndexSession)
+    ds, j, t = pair
     assert isinstance(make_session(t, SearchSpec(engine="torch", **SPEC)),
                       SingleIndexSession)
     with pytest.raises(TypeError, match="repro_torch"):
         make_session(j)
-    with pytest.raises(TypeError, match="not yet ported"):
+    # the JAX package's sharded index is still not the port's to serve
+    with pytest.raises(TypeError, match="repro_torch"):
         make_session(object.__new__(JSharded))
     with pytest.raises(TypeError):
         ServeFrontend(j)
+    # the port's sharded indexes get their sessions
+    arrays = shard_dataset(ds.base[:400], 2, graph="hnsw", m=8, efc=32)
+    sharded = ShardedAnnIndex(arrays, make_local_mesh(2, device="cpu"))
+    sess = make_session(sharded, SearchSpec(engine="torch", **SPEC))
+    assert isinstance(sess, ShardedIndexSession) and not sess.splits_stats
+    mutable = MutableShardedAnnIndex([t])
+    assert isinstance(make_session(mutable), MutableShardedIndexSession)
 
 
 def test_failpoint_sites_match_reference():
@@ -396,9 +409,10 @@ def test_failpoint_sites_match_reference():
     ported = {"serve.dispatch", "serve.worker", "mutate.merge.build",
               "mutate.merge.swap", "index.save.write", "index.save.rename",
               "wal.append", "wal.fsync", "wal.rotate", "checkpoint.write",
-              "manifest.rename"}
-    assert tfp.DECLARED_SITES == ported
-    assert ported <= jfp.DECLARED_SITES
+              "manifest.rename", "shard.search", "sharded.search",
+              "autotune.step", "autotune.probe"}
+    assert tfp.DECLARED_SITES == ported == jfp.DECLARED_SITES
+    assert tfp.KINDS == jfp.KINDS
     assert jfault.FaultSpec().kind == fault.FaultSpec().kind == "raise"
 
 
@@ -415,5 +429,6 @@ def test_serving_example_runs_on_the_cpu():
     spec.loader.exec_module(mod)
     out = mod.run(n_base=1000, n_query=64, device="cpu")
     assert out["recompiles_after_warmup"] == 0
+    assert out["sharded_recompiles"] == 0 and out["sharded_recall"] > 0.9
     assert out["mutable_recompiles"] == 0 and out["deleted_leaks"] == 0
     assert out["merges"] >= 1 and out["recall"] > 0.9
