@@ -37,7 +37,24 @@ Phases, each printing one JSON line:
    streaming/tiled split, d in {33, 100, 960}, an offset view x[3:] and a
    base off 16-byte alignment; l2 and ip, fp32 and bf16 inputs) must agree
    with its plain version within rtol 1e-4, atol 1e-4*d.
-3. ``hnsw``    — the main path with its hierarchy: make_dataset(50k x 128,
+2b. ``lm``    — the LM family (``repro_torch.models.transformer``; plain
+   PyTorch and cuBLAS, none of the six kernels: their counts must stay 0).
+   ``lm.check``: fp32 at granite-8b's widths with 2 layers: the blockwise
+   attention against a naive masked softmax at B=2, S=1024, H=32, dh=128
+   (forward 1e-4, gradients 1e-3), the decode step against ``forward``
+   (1e-3), ``moe_dispatch_indices`` at E=32, k=8, T=1024 equal to the
+   CPU's.  ``lm.serve``: granite-8b at full width and depth in bf16,
+   prefill B=2 x 4096 and 32 greedy decode steps (finite logits; the first
+   step at cosine >= 0.99 to ``forward`` in fp32 on the same weights, the
+   bf16 cosines reported; bf16 decode at cosine >= 0.999 to the bf16
+   ``forward`` on the same weights rescaled to a fan-in init).  ``lm.train``: four granite-moe-1b-a400m train
+   steps at full width (bf16, fp32 AdamW moments, B=2 x 512, remat; loss
+   and grad norm finite; the dispatch's kept share).  ``lm.launch``:
+   ``python -m repro_torch.launch.train`` (``LM_LAUNCH_ARGS``), again with
+   ``--resume``, and an in-process crash at 7, resume from 5, run to 12
+   (granite-8b's and granite-moe-1b-a400m's smoke configs) whose last
+   three losses equal the uninterrupted run's (or within 1e-5).
+3. ``hnsw``    — the main path with its hierarchy: make_dataset(30k x 128,
    64 clusters) -> AnnIndex.build(graph="hnsw", m=16, efc=64) -> search
    1024 queries in batches of 128 with every spec of ``SPECS`` and
    ``FINGER_SPECS`` on its engines: the "torch" (plain) engine, the "fused"
@@ -71,7 +88,7 @@ Phases, each printing one JSON line:
    Printed: latency percentiles, queue wait, QPS, pad overhead and first
    uses by rung, for the flush and worker parts.
 4b. ``mutate`` — live mutation (``repro_torch.mutate``) on an NSG at the
-   nsg phase's widths over the first 20k rows of its data (cut from 50k to
+   nsg phase's widths over the first 10k rows of its data (cut from 30k to
    keep the script within its time), behind the frontend (worker thread),
    with a durable directory
    (``wal_fsync="every"``): ragged requests interleaved with inserts of
@@ -89,7 +106,7 @@ Phases, each printing one JSON line:
    Printed: the merge's seconds by step and its build's launches, request
    latency during the merge and outside it, recovery seconds.
 4c. ``sharded`` — the sharded index (``repro_torch.core.sharded_index``)
-   on the mutate phase's 20k rows in four HNSW shards (m=16, efc=64 each,
+   on the mutate phase's 10k rows in four HNSW shards (m=16, efc=64 each,
    ``build_shards`` + ``stack_shards``, which is ``shard_dataset``), four
    shard slots on the one card: ``W4``, ``W1`` and ``W4_both`` on
    ``fused`` and ``torch`` and ``W4`` on ``unfused`` over the 1,024
@@ -97,7 +114,7 @@ Phases, each printing one JSON line:
    (ids, dists, every batch's totals), each batch must launch exactly its
    (engine, spec)'s kernels, each kernel must be bit-equal to its plain
    version on the shard inputs the run captured; recall@10 against exact
-   ground truth over the 20k rows.  The merged top-efs must equal a host
+   ground truth over the 10k rows.  The merged top-efs must equal a host
    merge of the four shards' own ``_search_batch`` pools; ``max_hops=8``
    gives ``iters <= 8``; a bucket-padded batch's totals equal the
    unpadded batch's; ``router="finger"`` raises ``NotImplementedError``.
@@ -111,7 +128,7 @@ Phases, each printing one JSON line:
    ``shard.search.1`` armed degrades to the other three shards'
    composition, ``recover`` from the parent manifest equals the live
    index.  Printed: build seconds and a 128-row batch's wall ms and idle
-   share at S=4 beside a single 20k index's.
+   share at S=4 beside a single 10k index's.
 4d. ``launch`` — ``python -m repro_torch.launch.serve`` with
    ``LAUNCH_ARGS`` (5,000 x 128, 64 requests, ``--autotune``) as a
    subprocess on the card: exit 0, ``recompiles_after_warmup=0``; printed
@@ -130,7 +147,7 @@ Phases, each printing one JSON line:
    ``retrieval_cand`` (1M unit-norm 128-d candidates, 1 and 32 queries)
    through ``make_retrieval_step`` and the ``l2_distance`` kernel in ip
    mode, whose top-100 must equal the step's up to ties; a CRouting-HNSW
-   index with ``metric="ip"`` (m=16, efc=96) over 25k candidates drawn as
+   index with ``metric="ip"`` (m=16, efc=96) over 10k candidates drawn as
    the example draws them, searched at k=100, efs=200 with every spec of
    ``IP_SPECS`` on its engines (recall@100 against brute force).
 8. ``timing``  — each kernel, its plain version and its bound on inputs
@@ -177,6 +194,7 @@ the ground truth are fp32 matrix products.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -216,6 +234,16 @@ IP_SPECS = {"ip_W1": dict(k=100, efs=200, router="crouting"),
             # no pruning: what the graph itself reaches at this efs
             "ip_W4_none": dict(k=100, efs=200, router="none", beam_width=4)}
 IP_UNFUSED_SPECS = ("ip_W4", "ip_W4_both")
+# the lm phase: granite-8b prefill + greedy decode at full width and depth,
+# granite-moe-1b-a400m train steps at full width, the training launcher
+LM_SERVE = dict(batch=2, prompt=4096, new_tokens=32)
+LM_TRAIN = dict(batch=2, seq=512, steps=4)
+LM_RESUME_ARCHS = ("granite-8b", "granite-moe-1b-a400m")   # dense, MoE
+LM_LAUNCH_ARGS = ("--arch", "granite-8b", "--steps", "12", "--ckpt-every",
+                  "5")
+# the hnsw and nsg phases' base rows (the host HNSW builder and the NSG
+# build set most of the script's time)
+HNSW_BASE = 30_000
 COUNTERS = ("dist_calls", "est_calls", "hops", "rerank_calls", "sq8_calls")
 BATCH = 128
 
@@ -1189,8 +1217,9 @@ def nsg_phase(ds, gt, main_launches, capture, rng):
           "mean_degree": float(deg.mean()), "padded_degree": g.max_degree,
           "build_launches": launches,
           "theta_star": idx.profile.theta_star, "mrng": mrng,
-          "cuts": "n 1M (the paper's SIFT) -> 50k, the hnsw phase's "
-                  "dataset, so both graphs answer the same queries; "
+          "cuts": "n 1M (the paper's SIFT) -> 30k (50k until the lm "
+                  "phase came), the hnsw phase's dataset, so both graphs "
+                  "answer the same queries; "
                   "R, C, L, knn_k and d at the paper's widths"})
     check(mrng["equal_share"] >= 0.999,
           f"nsg: the built rows equal the NumPy MRNG loop on only "
@@ -1247,7 +1276,7 @@ K_MIX = (1, 5, 10)
 INSERT_ROWS, INSERT_CHUNK, DELETES, DELTA_CAPACITY = 1024, 64, 512, 1024
 # the mutate phase's base: the first rows of the nsg phase's data (its NSG
 # merge and the static rebuild run at this size)
-MUTATE_BASE = 20_000
+MUTATE_BASE = 10_000
 # requests the mutate phase keeps in flight, back to back, across the
 # merge and after it (the serve phase's 4 submitting threads)
 IN_FLIGHT = 4
@@ -1705,9 +1734,10 @@ def mutate_phase(ds, main_launches):
           "fused_equals_torch": equal_engines, "ingest": ingest,
           "ingest_in_checkout": ingest_checkout,
           "crash_sweep": sweep,
-          "cuts": "n 1M (the paper's SIFT) -> 20k, the first 20k rows of "
-                  "the nsg phase's 50k (at 50k the merge beside live "
-                  "traffic took 168 s and the script ran past 15 minutes); "
+          "cuts": "n 1M (the paper's SIFT) -> 10k, the first 10k rows of "
+                  "the nsg phase's 30k (at 50k the merge beside live "
+                  "traffic took 168 s and the script ran past 15 minutes; "
+                  "20k until the lm phase came); "
                   "R, C, L, knn_k and d at the paper's widths"})
     check(mi.merges_completed >= 1 and in_merge,
           "mutate: no background merge completed with requests in flight")
@@ -1839,7 +1869,7 @@ def crash_sweep(index, fresh, queries, spec, tmp):
 
 
 # --- phases 4c and 4d: the sharded index, the serving launcher ---------------
-# the sharded phase: the mutate phase's 20k rows in four shards, four shard
+# the sharded phase: the mutate phase's 10k rows in four shards, four shard
 # slots on the one card; (spec, engine) runs, the kernel engines first
 SHARDS = 4
 SHARDED_RUNS = (("W4", "fused"), ("W4", "unfused"), ("W4", "torch"),
@@ -2193,7 +2223,7 @@ def sharded_phase(ds, main_launches):
     mesh = make_local_mesh(SHARDS, "shards")
     idx = ShardedAnnIndex(arrays, mesh, spec=SearchSpec(**SPECS["W4"]))
     dev = mesh.devices[0]
-    gt = exact_ground_truth(VectorDataset("first20k", base, ds.queries),
+    gt = exact_ground_truth(VectorDataset("first10k", base, ds.queries),
                             k=10, device=dev)
     runs, checked = sharded_runs(idx, ds.queries, gt, main_launches)
     edges = sharded_edges(idx, arrays, ds.queries, dev)
@@ -2203,7 +2233,7 @@ def sharded_phase(ds, main_launches):
     single_secs = time.perf_counter() - t0
     spec = SearchSpec(engine="fused", **SPECS["W4"])
     prof = {"sharded_S4": profile_batch(idx, ds.queries, spec),
-            "single_20k": profile_batch(single, ds.queries, spec)}
+            "single_10k": profile_batch(single, ds.queries, spec)}
     del single
     with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
         mutate = sharded_mutate(graphs, profiles, ds.queries,
@@ -2221,8 +2251,9 @@ def sharded_phase(ds, main_launches):
                                        "kernel_launches", "port_kernels")}
               for k, v in prof.items()},
           "mutate": mutate,
-          "cuts": "n 1M -> 20k (the mutate phase's rows) in 4 shards of "
-                  "5k on one card; m 32 -> 16, efc 256 -> 64 (host HNSW "
+          "cuts": "n 1M -> 10k (the mutate phase's rows; 20k until the "
+                  "lm phase came) in 4 shards of 2.5k on one card; m 32 -> "
+                  "16, efc 256 -> 64 (host HNSW "
                   "builder)"})
 
 
@@ -2269,6 +2300,393 @@ def launch_phase():
     check(result is not None and int(result[5]) == 0,
           "launch: recompiles_after_warmup is not 0")
     check(tuned is not None, "launch: no autotune line")
+
+
+def lm_check(dev):
+    """``lm.check``: fp32 at granite-8b's widths, 2 layers, on the card.
+    The blockwise attention against a naive masked softmax at B=2, S=1024,
+    H=32 (8 kv heads), dh=128 with the config's blocks (forward 1e-4, its
+    autograd.Function's gradients 1e-3, each relative to the largest
+    entry); the decode step's logits at position S against ``forward``'s
+    (rtol = atol = 1e-3); ``moe_dispatch_indices`` for granite-moe's E=32,
+    k=8 at T=1024 on the card against the CPU, exactly."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("granite-8b").model_cfg, n_layers=2,
+                              dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, S, H, Hkv, dh = 2, 1024, cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    q, k, v = (torch.randn(B, S, h, dh, generator=gen, device=dev,
+                           requires_grad=True) for h in (H, Hkv, Hkv))
+    do = torch.randn(B, S, H, dh, generator=gen, device=dev)
+    o = L.blockwise_causal_attention(q, k, v, block_q=cfg.block_q,
+                                     block_k=cfg.block_k)
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    G = H // Hkv
+    s = torch.einsum("bshd,bthd->bhst", q, k.repeat_interleave(G, dim=2))
+    s = (s / np.sqrt(dh)).masked_fill(
+        ~torch.ones(S, S, dtype=torch.bool, device=dev).tril(), -np.inf)
+    ref = torch.einsum("bhst,bthd->bshd", s.softmax(-1),
+                       v.repeat_interleave(G, dim=2))
+    ref_grads = torch.autograd.grad(ref, (q, k, v), do)
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    attn_err = rel(o.detach(), ref.detach())
+    grad_errs = [rel(a, b) for a, b in zip(grads, ref_grads)]
+    check(attn_err <= 1e-4, f"lm.check: attention {attn_err} from naive")
+    check(max(grad_errs) <= 1e-3,
+          f"lm.check: attention gradients {grad_errs} from naive")
+    del q, k, v, do, o, grads, s, ref, ref_grads
+
+    params = T.init_params(cfg, gen, dev)
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen, device=dev)
+    _, cache = T.make_prefill_step(cfg)(params, toks[:, :S])
+    cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 32))
+             for n, c in cache.items()}
+    logits, _ = T.make_serve_step(cfg)(params, cache, toks[:, S:], S)
+    with torch.no_grad():
+        h = T.forward(params, toks, cfg)
+        fwd = (h[:, S] @ params["lm_head"]).float()[:, :cfg.vocab]
+    decode_err = float((logits - fwd).abs().max())
+    check(torch.allclose(logits, fwd, rtol=1e-3, atol=1e-3),
+          f"lm.check: decode logits differ from forward by {decode_err}")
+    del params, cache, h
+
+    moe = get_arch("granite-moe-1b-a400m").model_cfg.moe
+    T_tok = 1024
+    cap = max(8, int(moe.capacity_factor * moe.top_k * T_tok
+                     / moe.n_experts))
+    _, top = torch.topk(torch.randn(T_tok, moe.n_experts, generator=gen,
+                                    device=dev), moe.top_k, dim=-1)
+    on_card = L.moe_dispatch_indices(top, moe.n_experts, cap)
+    on_cpu = L.moe_dispatch_indices(top.cpu(), moe.n_experts, cap)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)),
+          "lm.check: moe_dispatch_indices differ between card and CPU")
+    torch.cuda.empty_cache()
+    return {"phase": "lm.check", "widths": "granite-8b, 2 layers, fp32",
+            "attn_shape": [B, S, H, Hkv, dh],
+            "blocks": [cfg.block_q, cfg.block_k],
+            "attn_rel_err": attn_err, "attn_grad_rel_err": grad_errs,
+            "decode_vs_forward_max_abs_err": decode_err,
+            "moe_dispatch": {"T": T_tok, "E": moe.n_experts, "k": moe.top_k,
+                             "capacity": cap, "equal_to_cpu": True,
+                             "kept_share": float(on_cpu[1].float().mean())},
+            "secs": time.perf_counter() - t_phase}
+
+
+def lm_serve(dev):
+    """``lm.serve``: granite-8b at full width and depth in bf16, parameters
+    drawn on the card; prefill B=2 x S=4096 (blocks 256 x 1024), then a
+    greedy decode of ``LM_SERVE["new_tokens"]`` tokens into a cache of
+    S + 32 slots; every logit finite.  The first decode step against
+    ``forward`` over the prompt plus that token: in fp32 on the same
+    weights (cast up) at cosine >= 0.99 a row.  In bf16 at full depth the
+    cosine is reported beside the bf16 forward's own cosine to the fp32
+    one: at this init (stacked weights drawn with fan_in = n_layers,
+    attention scores near one-hot) bf16 rounding moves the last logits by
+    tens of percent at 16 layers and more at 36, on either path, and by a
+    few percent at one layer on some seeds.  So bf16 decode is held to the
+    bf16 forward at full width and depth on the same weights rescaled to a
+    fan-in init: cosine >= 0.999 a row, fp32 logits and a bf16 cache."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_leaves, tree_map
+    t_phase = time.perf_counter()
+    cfg = get_arch("granite-8b").model_cfg
+    B, S, n_new = LM_SERVE["batch"], LM_SERVE["prompt"], LM_SERVE["new_tokens"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, dev)
+    torch.cuda.synchronize()
+    init_secs = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prefill, serve = T.make_prefill_step(cfg), T.make_serve_step(cfg)
+    toks = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev)
+    prefill(params, toks[:, :256])                 # first use: cuBLAS, kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, toks)
+    torch.cuda.synchronize()
+    prefill_secs = time.perf_counter() - t0
+    finite = torch.isfinite(logits).all()
+    T_cache = S + n_new
+    cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, n_new))
+             for n, c in cache.items()}
+    tok = logits.argmax(-1, keepdim=True)
+    first_tok, step_ms, out = tok, [], []
+    for i in range(n_new):
+        t0 = time.perf_counter()
+        logits, cache = serve(params, cache, tok, S + i)
+        tok = logits.argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        finite &= torch.isfinite(logits).all()
+        if i == 0:
+            first_logits = logits
+        out.append(tok)
+    peak = int(torch.cuda.max_memory_allocated())
+    check(bool(finite), "lm.serve: a logit is not finite")
+    del cache
+    prompt = torch.cat([toks, first_tok], dim=1)
+
+    def forward_logits(p, c):
+        with torch.no_grad():
+            return (T.forward(p, prompt, c)[:, S] @ p["lm_head"]
+                    ).float()[:, :c.vocab]
+
+    def cosine(a, b):
+        return torch.nn.functional.cosine_similarity(
+            a.double(), b.double(), dim=-1).tolist()
+
+    fwd = forward_logits(params, cfg)
+    # the same weights in fp32: the decode step and the forward again
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = tree_map(lambda t: t.float(), params)
+    _, cache = T.make_prefill_step(cfg32)(p32, toks)
+    cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 1))
+             for n, c in cache.items()}
+    dec32, _ = T.make_serve_step(cfg32)(p32, cache, first_tok, S)
+    del cache
+    fwd32 = forward_logits(p32, cfg32)
+    cos32 = cosine(dec32, fwd32)
+    check(min(cos32) >= 0.99,
+          f"lm.serve: fp32 first decode step at cosine {cos32} to forward")
+    del p32
+    # bf16 decode against the bf16 forward on the same weights rescaled to
+    # a fan-in init (each stacked matrix to std 1/sqrt(its input width), so
+    # attention scores have std ~1): the reference's init leaves the scores
+    # near one-hot, where one bf16 rounding of q or k flips a softmax
+    for leaf in params["layers"].values():
+        if leaf.dim() == 3:
+            leaf.mul_(math.sqrt(cfg.n_layers / leaf.shape[1]))
+    _, cache = prefill(params, toks)
+    cache = {n: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, 1))
+             for n, c in cache.items()}
+    dec16, cache = serve(params, cache, first_tok, S)
+    check(dec16.dtype == torch.float32 and cache["k"].dtype == torch.bfloat16
+          and cache["v"].dtype == torch.bfloat16,
+          f"lm.serve: bf16 decode gave {dec16.dtype} logits and a "
+          f"{cache['k'].dtype} cache")
+    del cache
+    cos16 = cosine(dec16, forward_logits(params, cfg))
+    check(min(cos16) >= 0.999,
+          f"lm.serve: bf16 first decode step at cosine {cos16} to the bf16 "
+          f"forward (fan-in weights)")
+    del params
+    torch.cuda.empty_cache()
+    return {"phase": "lm.serve", "arch": cfg.name, "dtype": cfg.dtype,
+            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "param_count": n_params, "param_gb": n_params * 2 / 1e9,
+            "init_secs": init_secs, "batch": B, "prompt": S,
+            "blocks": [cfg.block_q, cfg.block_k], "cache_slots": T_cache,
+            "prefill_secs": prefill_secs,
+            "prefill_tokens_per_s": B * S / prefill_secs,
+            "decode_tokens": n_new,
+            "decode_ms_per_token_mean": sum(step_ms) / n_new,
+            "decode_ms_per_token_median": statistics.median(step_ms),
+            "decode_ms_first": step_ms[0],
+            "first_step_cosine_fp32": cos32,
+            "first_step_cosine_bf16_fan_in": cos16,
+            "first_step_cosine_bf16": cosine(first_logits, fwd),
+            "bf16_decode_vs_fp32_forward": cosine(first_logits, fwd32),
+            "bf16_forward_vs_fp32_forward": cosine(fwd, fwd32),
+            "greedy_tokens_row0": torch.cat(out, 1)[0, :8].tolist(),
+            "max_memory_allocated_bf16_serve": peak,
+            "cuts": "prefill_32k B=32 x 32,768 -> B=2 x 4,096; decode_32k "
+                    "B=128 x a 32,768 cache -> B=2 x 4,128 slots, 32 greedy "
+                    "steps",
+            "secs": time.perf_counter() - t_phase}
+
+
+def moe_kept_share(params, tokens, cfg):
+    """Each layer's dispatch kept share (``keep.mean()``) on ``tokens``,
+    read from the model's own ``forward``: ``moe_dispatch_indices`` is
+    wrapped for that one call to record what each MoE layer kept."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    dispatch, kept = L.moe_dispatch_indices, []
+
+    def recording(top_idx, n_experts, capacity):
+        dest, keep, src = dispatch(top_idx, n_experts, capacity)
+        kept.append((keep.float().mean(), capacity))
+        return dest, keep, src
+
+    L.moe_dispatch_indices = recording
+    try:
+        with torch.no_grad():
+            T.forward(params, tokens, cfg)
+    finally:
+        L.moe_dispatch_indices = dispatch
+    check(len(kept) == cfg.n_layers,
+          f"lm.train: {len(kept)} dispatches in a {cfg.n_layers}-layer forward")
+    return [float(k) for k, _ in kept], kept[0][1]
+
+
+def lm_train(dev):
+    """``lm.train``: granite-moe-1b-a400m at full width in bf16, fp32 AdamW
+    moments, B=2 x S=512, remat on, ``LM_TRAIN["steps"]`` steps of
+    ``make_train_step``: loss and grad norm finite at every step."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_leaves
+    t_phase = time.perf_counter()
+    cfg = get_arch("granite-moe-1b-a400m").model_cfg
+    B, S, n_steps = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["steps"]
+    ocfg = opt.AdamWConfig(state_dtype="float32")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, gen, dev)
+    state = opt.adamw_init(params, ocfg)
+    torch.cuda.synchronize()
+    init_secs = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    stream = LMStream(cfg.vocab, B, S, seed=0)
+    step = T.make_train_step(cfg, ocfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, secs, kept = [], [], [], None
+    for i in range(n_steps):
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in stream.next().items()}
+        if i == 0:
+            kept, cap = moe_kept_share(params, batch["tokens"], cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        secs.append(time.perf_counter() - t0)
+    peak = int(torch.cuda.max_memory_allocated())
+    check(all(map(math.isfinite, losses + gnorms)),
+          f"lm.train: loss {losses} / grad norm {gnorms} not finite")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"phase": "lm.train", "arch": cfg.name, "dtype": cfg.dtype,
+            "state_dtype": ocfg.state_dtype, "remat": cfg.remat,
+            "param_count": n_params, "padded_vocab": cfg.padded_vocab,
+            "batch": B, "seq": S, "init_secs": init_secs, "losses": losses,
+            "grad_norms": gnorms, "step_secs": secs,
+            "moe_capacity": cap, "kept_share_by_layer": kept,
+            "kept_share_mean": sum(kept) / len(kept),
+            "max_memory_allocated": peak,
+            "cuts": "train_4k B=256 x 4,096 -> B=2 x 512, 4 steps, no "
+                    "checkpoint (about 14 GB to a 9p temp directory)",
+            "secs": time.perf_counter() - t_phase}
+
+
+def lm_launch(dev):
+    """``lm.launch``: ``python -m repro_torch.launch.train`` with
+    ``LM_LAUNCH_ARGS`` (the smoke config) as a subprocess on the card, then
+    again with ``--resume``: both exit 0.  In-process, the crash and resume
+    of tests/test_checkpoint.py::test_crash_resume_bitexact on the card at
+    the launcher's settings, for the smoke configs of ``LM_RESUME_ARCHS``
+    (dense and MoE): crash at 7, resume from 5, run to 12; the last three
+    losses against the uninterrupted run's (bit for bit, or the largest
+    relative difference <= 1e-5: the MoE combine's ``index_add`` adds with
+    atomics on the GPU)."""
+    import os
+    import re
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    try:
+        for extra in ((), ("--resume",)):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train",
+                 *LM_LAUNCH_ARGS, "--ckpt-dir", os.path.join(tmp, "launch"),
+                 *extra], capture_output=True, text=True, env=env, cwd=ROOT,
+                timeout=300)
+            done = re.search(r"^done: .*$", proc.stdout, re.M)
+            resumed = re.search(r"^resumed from step (\d+)$", proc.stdout,
+                                re.M)
+            runs.append({"args": list(LM_LAUNCH_ARGS) + list(extra),
+                         "rc": proc.returncode,
+                         "secs": time.perf_counter() - t0,
+                         "done": done.group(0) if done else None,
+                         "resumed_from": int(resumed.group(1))
+                         if resumed else None,
+                         "stderr_tail": proc.stderr[-2000:]
+                         if proc.returncode else ""})
+            check(proc.returncode == 0 and done is not None,
+                  f"lm.launch: {runs[-1]}")
+        check(runs[1]["resumed_from"] == 12,
+              f"lm.launch: --resume did not resume from step 12: {runs[1]}")
+
+        ocfg = opt.AdamWConfig(lr=3e-3, warmup_steps=20, total_steps=12)
+
+        def make_trainer(arch, name):
+            cfg = get_arch(arch).smoke_cfg
+            params = T.init_params(
+                cfg, torch.Generator(device=dev).manual_seed(0), dev)
+            return Trainer(
+                TrainerConfig(total_steps=12, ckpt_every=5,
+                              ckpt_dir=os.path.join(tmp, arch, name),
+                              log_every=100),
+                T.make_train_step(cfg, ocfg), params,
+                opt.adamw_init(params, ocfg), LMStream(cfg.vocab, 8, 128))
+
+        crash = {}
+        for arch in LM_RESUME_ARCHS:
+            ref = make_trainer(arch, "ref").run()["history"]
+            try:
+                make_trainer(arch, "crash").run(crash_at=7)
+            except RuntimeError:
+                pass
+            t2 = make_trainer(arch, "crash")
+            check(t2.maybe_resume() and t2.step == 5,
+                  f"lm.launch: {arch} resumed at step {t2.step}, not 5")
+            got = t2.run()["history"]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got[-3:], ref[-3:]))
+            check(rel <= 1e-5, f"lm.launch: {arch} resumed losses "
+                  f"{got[-3:]} vs {ref[-3:]}")
+            crash[arch] = {"crash_at": 7, "resumed_at": 5, "last3": got[-3:],
+                           "last3_ref": ref[-3:],
+                           "bit_equal": got[-3:] == ref[-3:],
+                           "max_rel_diff": rel}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"phase": "lm.launch", "runs": runs, "crash_resume": crash,
+            "secs": time.perf_counter() - t_phase}
+
+
+def lm_phase(dev):
+    """The LM family (phase 2b): ``lm.check``, ``lm.serve``, ``lm.train``,
+    ``lm.launch``.  Its path reaches none of the six kernels (the
+    reference's LM is plain JAX): the counts are reset before it and must
+    read 0 after."""
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    for part in (lm_check, lm_serve, lm_train, lm_launch):
+        emit(part(dev))
+    launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()),
+          f"lm: the LM path launched a search kernel: {launches}")
+    emit({"phase": "lm", "port_kernel_launches": launches,
+          "secs": time.perf_counter() - t0})
 
 
 def router_sweep(main_launches):
@@ -2332,8 +2750,9 @@ VOCAB_CAP = 4_000_000     # 24.07M table rows, 12.3 GB fp32 (full: 96 GB)
 # the example's n_cand is 100k; on the H100 machine's host its index took
 # 657 s to build and the whole script 994 s, so the index was cut to 50k;
 # at 50k it took 209 s of a 1,064 s script once the sharded and launch
-# phases came (PR 19), so it is cut to 25k
-ANN_CANDIDATES = 25_000
+# phases came, so it was cut to 25k; at 25k it took 120 s of a 1,239 s
+# script once the lm phase came, so it is cut to 10k
+ANN_CANDIDATES = 10_000
 ANN_QUERIES = 1024
 
 
@@ -2478,9 +2897,9 @@ def retrieval_phase(dev, main_launches, captures):
           "build_secs": build_secs,
           "levels": idx.graph.build_stats["levels"],
           "theta_star": idx.profile.theta_star, "queries": ANN_QUERIES,
-          "cuts": "n 100k (the example) -> 25k (50k until the sharded "
-                  "and launch phases came), and not retrieval_cand's 1M: "
-                  "the host HNSW builder"})
+          "cuts": "n 100k (the example) -> 10k (50k until the sharded "
+                  "and launch phases came, 25k until the lm phase came), "
+                  "and not retrieval_cand's 1M: the host HNSW builder"})
     search_phase("retrieval", idx, qs, gt.cpu().numpy(), main_launches,
                  captures=captures, specs=IP_SPECS,
                  unfused_specs=IP_UNFUSED_SPECS, k=k)
@@ -3027,19 +3446,22 @@ def main() -> int:
           "gather_distance": check_gather_distance(rng, dev),
           "crouting_prune": check_crouting_prune(rng, dev),
           "l2_distance": check_l2_distance(dev)})
+    # 2b. the LM family: granite-8b serving, granite-moe training, launcher
+    lm_phase(dev)
     main_launches = {}
     # 3. hnsw: the main path with its hierarchy, at a reduced n
     t0 = time.perf_counter()
-    ds = make_dataset(n_base=50_000, n_query=1024, dim=128, n_clusters=64,
+    ds = make_dataset(n_base=HNSW_BASE, n_query=1024, dim=128, n_clusters=64,
                       seed=0)
     idx = AnnIndex.build(ds.base, graph="hnsw", m=16, efc=64)
     build_secs = time.perf_counter() - t0
     gt = exact_ground_truth(ds, k=10)
-    emit({"phase": "hnsw", "n": 50_000, "dim": 128, "m": 16, "efc": 64,
+    emit({"phase": "hnsw", "n": HNSW_BASE, "dim": 128, "m": 16, "efc": 64,
           "build_secs": build_secs,
           "levels": idx.graph.build_stats["levels"],
           "theta_star": idx.profile.theta_star,
-          "cuts": "n 1M->50k, m 32->16, efc 256->64 (host HNSW builder)"})
+          "cuts": "n 1M->30k (50k until the lm phase came), m 32->16, "
+                  "efc 256->64 (host HNSW builder)"})
     search_phase("hnsw", idx, ds.queries, gt, main_launches,
                  specs={**SPECS, **FINGER_SPECS},
                  unfused_specs=UNFUSED_SPECS + tuple(FINGER_SPECS))

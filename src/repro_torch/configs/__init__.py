@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``get_arch(id)`` / ``list_archs()``.
 
 The counterpart of ``repro.configs``, copied and cut to what the port runs:
-the dlrm-mlperf recsys model and the paper's own ANNS serving config.  Each
-module defines SPEC (an ArchSpec).
+the five LM archs, the dlrm-mlperf recsys model and the paper's own ANNS
+serving config, in the reference's order (the GNN ids come with the GNN
+family).  Each module defines SPEC (an ArchSpec).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class ShapeSpec:
     shape_id: str
-    step: str                 # train | serve | retrieval | anns_serve
+    step: str                 # train | prefill | serve | retrieval | anns_serve
     dims: Dict[str, int]
     notes: str = ""
 
@@ -22,7 +23,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str               # recsys | anns
+    family: str               # lm | recsys | anns
     model_cfg: Any
     shapes: Tuple[ShapeSpec, ...]
     source: str = ""          # provenance [arXiv / hf]
@@ -36,6 +37,11 @@ class ArchSpec:
 
 
 _MODULES = {
+    "granite-8b": "granite_8b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "qwen1.5-4b": "qwen1_5_4b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "arctic-480b": "arctic_480b",
     "dlrm-mlperf": "dlrm_mlperf",
     "crouting-anns": "crouting_paper",
 }

@@ -3,6 +3,18 @@ from __future__ import annotations
 
 from repro_torch.configs import ShapeSpec
 
+LM_SHAPES = (
+    ShapeSpec("train_4k", "train", dict(seq_len=4096, global_batch=256),
+              "training"),
+    ShapeSpec("prefill_32k", "prefill", dict(seq_len=32768, global_batch=32),
+              "inference-prefill"),
+    ShapeSpec("decode_32k", "serve", dict(seq_len=32768, global_batch=128),
+              "inference-decode: 1 new token, KV cache of seq_len"),
+    ShapeSpec("long_500k", "serve", dict(seq_len=524288, global_batch=1),
+              "long-context decode; O(S) per token with sequence-sharded KV "
+              "(full-attention archs: see DESIGN.md §5 long_500k note)"),
+)
+
 RECSYS_SHAPES = (
     ShapeSpec("train_batch", "train", dict(batch=65_536), "training"),
     ShapeSpec("serve_p99", "serve", dict(batch=512), "online-inference"),

@@ -1,1 +1,2 @@
-"""Model families of the port (inference): ``dlrm``."""
+"""Model families of the port: ``dlrm`` (inference) and the LM family
+(``transformer`` on ``layers``)."""

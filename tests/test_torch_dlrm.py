@@ -123,7 +123,9 @@ def test_configs_name_the_retrieval_shapes():
     assert spec.shape("retrieval_cand").dims == dict(batch=1,
                                                      n_candidates=1_000_000)
     assert spec.shape("serve_p99").dims == dict(batch=512)
-    assert list_archs() == ["dlrm-mlperf"]
+    assert list_archs() == ["granite-8b", "phi4-mini-3.8b", "qwen1.5-4b",
+                            "granite-moe-1b-a400m", "arctic-480b",
+                            "dlrm-mlperf"]
     assert get_arch("crouting-anns").model_cfg.m == 32
     with pytest.raises(KeyError):
         spec.shape("decode_32k")

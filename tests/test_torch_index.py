@@ -182,11 +182,20 @@ new = ["repro_torch.quant.sq8", "repro_torch.kernels.sq8_distance",
        "repro_torch.launch", "repro_torch.launch.mesh",
        "repro_torch.launch.serve", "repro_torch.autotune",
        "repro_torch.autotune.space", "repro_torch.autotune.controller",
-       "repro_torch.autotune.proxy", "repro_torch.autotune.driver"]
+       "repro_torch.autotune.proxy", "repro_torch.autotune.driver",
+       "repro_torch.tree", "repro_torch.models.layers",
+       "repro_torch.models.transformer", "repro_torch.data.synthetic",
+       "repro_torch.train", "repro_torch.train.optimizer",
+       "repro_torch.train.checkpoint", "repro_torch.train.elastic",
+       "repro_torch.train.trainer", "repro_torch.launch.train",
+       "repro_torch.configs.granite_8b", "repro_torch.configs.phi4_mini_3_8b",
+       "repro_torch.configs.qwen1_5_4b",
+       "repro_torch.configs.granite_moe_1b_a400m",
+       "repro_torch.configs.arctic_480b"]
 assert all(m in mods for m in new), (new, mods)
 import chip_smoke
 import importlib.util
-for name in ("dlrm_retrieval_torch", "serve_anns_torch"):
+for name in ("dlrm_retrieval_torch", "serve_anns_torch", "train_lm_torch"):
     spec = importlib.util.spec_from_file_location(
         name, os.path.join({examples!r}, name + ".py"))
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
