@@ -43,8 +43,12 @@ Phases, each printing one JSON line:
    attention against a naive masked softmax at B=2, S=1024, H=32, dh=128
    (forward 1e-4, gradients 1e-3), the decode step against ``forward``
    (1e-3), ``moe_dispatch_indices`` at E=32, k=8, T=1024 equal to the
-   CPU's.  ``lm.serve``: granite-8b at full width and depth in bf16,
-   prefill B=2 x 4096 and 32 greedy decode steps (finite logits; the first
+   CPU's, and ``moe_layer`` there (granite-moe's widths, fp32 and bf16)
+   forward and backward twice: outputs and gradients bit-equal (its
+   combine gathers and sums in choice order; the ``index_add`` combine it
+   replaced is run twice beside it and reported).  ``lm.serve``:
+   granite-8b at full width and depth in bf16, prefill B=2 x 4096 and 32
+   greedy decode steps (finite logits; the first
    step at cosine >= 0.99 to ``forward`` in fp32 on the same weights, the
    bf16 cosines reported; bf16 decode at cosine >= 0.999 to the bf16
    ``forward`` on the same weights rescaled to a fan-in init).  ``lm.train``: four granite-moe-1b-a400m train
@@ -53,7 +57,27 @@ Phases, each printing one JSON line:
    ``python -m repro_torch.launch.train`` (``LM_LAUNCH_ARGS``), again with
    ``--resume``, and an in-process crash at 7, resume from 5, run to 12
    (granite-8b's and granite-moe-1b-a400m's smoke configs) whose last
-   three losses equal the uninterrupted run's (or within 1e-5).
+   three losses equal the uninterrupted run's bit for bit.
+2c. ``gnn``   — the GNN family (``repro_torch.models.gnn``; plain PyTorch,
+   none of the six kernels: their counts must stay 0): three AdamW train
+   steps of every arch (schnet, gat-cora, egnn, gin-tu) at
+   ``full_graph_sm`` (2,708 nodes, 10,556 edges, 1,433 features),
+   ``molecule`` (128 graphs x 30 nodes, 64 edges each) and
+   ``minibatch_lg``'s sampled bounds (169,984 nodes, 168,960 edges, 602
+   features), and of gin-tu at ``ogb_products`` (2,449,029 nodes,
+   61,859,140 edges), counts padded to /512 with zero masks as the
+   reference's cells pad; one line each: step seconds (first and steady),
+   peak memory, the edge tensors' bytes, a finite loss and grad norm,
+   whether two identical steps repeat bit for bit (reported: ``index_add``
+   adds with atomics), and on the first two shapes the loss and gradients
+   against the port on the CPU (rtol 1e-4).  ``dlrm.train``: dlrm-mlperf
+   at its widths with 4M rows a table, ``train_batch`` B=65,536, fp32
+   AdamW, three donated steps: seconds, losses, peak memory, and whether
+   a second init and first step repeat the first bit for bit.
+   ``quickstart``: ``examples/quickstart_torch.py`` as a subprocess (5,000
+   x 128, HNSW m=16, efc=128; routers none, crouting, finger at efs=96 on
+   the fused engine): exit 0, its "CRouting skipped" line; its launches
+   count with the main paths'.
 3. ``hnsw``    — the main path with its hierarchy: make_dataset(30k x 128,
    64 clusters) -> AnnIndex.build(graph="hnsw", m=16, efc=64) -> search
    1024 queries in batches of 128 with every spec of ``SPECS`` and
@@ -2309,7 +2333,8 @@ def lm_check(dev):
     autograd.Function's gradients 1e-3, each relative to the largest
     entry); the decode step's logits at position S against ``forward``'s
     (rtol = atol = 1e-3); ``moe_dispatch_indices`` for granite-moe's E=32,
-    k=8 at T=1024 on the card against the CPU, exactly."""
+    k=8 at T=1024 on the card against the CPU, exactly; ``moe_layer``
+    there repeats bit for bit (``moe_combine_repeats``)."""
     import dataclasses
     import numpy as np
     import torch
@@ -2369,6 +2394,7 @@ def lm_check(dev):
     on_cpu = L.moe_dispatch_indices(top.cpu(), moe.n_experts, cap)
     check(all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)),
           "lm.check: moe_dispatch_indices differ between card and CPU")
+    combine = moe_combine_repeats(dev, gen, T_tok)
     torch.cuda.empty_cache()
     return {"phase": "lm.check", "widths": "granite-8b, 2 layers, fp32",
             "attn_shape": [B, S, H, Hkv, dh],
@@ -2378,7 +2404,71 @@ def lm_check(dev):
             "moe_dispatch": {"T": T_tok, "E": moe.n_experts, "k": moe.top_k,
                              "capacity": cap, "equal_to_cpu": True,
                              "kept_share": float(on_cpu[1].float().mean())},
+            "moe_combine": combine,
             "secs": time.perf_counter() - t_phase}
+
+
+def moe_combine_repeats(dev, gen, T_tok):
+    """``moe_layer`` (its fixed-order combine) at granite-moe's widths and
+    E=32, k=8 on ``T_tok`` tokens, forward and backward twice on the same
+    inputs, in fp32 and bf16: the outputs and all five gradients must be
+    bit-equal.  Beside it, for the record only, the slot-indexed
+    ``index_add`` combine it replaced, run twice the same way: whether
+    its atomics happened to repeat."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.models import layers as L
+    cfg = get_arch("granite-moe-1b-a400m").model_cfg
+    E, k, D, Fd = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model, cfg.d_ff
+    mcfg = L.MoeConfig(E, k, cfg.moe.capacity_factor)
+
+    def index_add_combine(x, gate_w, w_gate, w_up, w_down):
+        cap = max(8, int(mcfg.capacity_factor * k * T_tok / E))
+        top_val, top_idx = torch.topk((x @ gate_w).float(), k, dim=-1)
+        probs = torch.softmax(top_val, dim=-1).to(x.dtype)
+        dest, keep, src = L.moe_dispatch_indices(top_idx, E, cap)
+        xe = F.embedding(src.reshape(E, cap),
+                         torch.cat([x, x.new_zeros(1, D)]))
+        h = F.silu(torch.einsum("ecd,edf->ecf", xe, w_gate)) \
+            * torch.einsum("ecd,edf->ecf", xe, w_up)
+        ye = torch.einsum("ecf,efd->ecd", h, w_down)
+        slot = torch.where(keep.reshape(-1), dest.reshape(-1), E * cap)
+        wslot = ye.new_zeros(E * cap + 1).index_put(
+            (slot,), (probs * keep).reshape(-1).to(ye.dtype))
+        upd = ye.reshape(E * cap, D) * wslot[:-1, None]
+        return ye.new_zeros(T_tok + 1, D).index_add(0, src, upd)[:T_tok]
+
+    out = {"T": T_tok, "E": E, "k": k, "d_model": D, "d_ff": Fd}
+    for dt in (torch.float32, torch.bfloat16):
+        args = [torch.randn(shape, generator=gen, device=dev).mul_(sc).to(dt)
+                .requires_grad_(True) for shape, sc in (
+                    ((T_tok, D), 1.0), ((D, E), 0.05), ((E, D, Fd), 0.03),
+                    ((E, D, Fd), 0.03), ((E, Fd, D), 0.04))]
+        cot = torch.randn((T_tok, D), generator=gen, device=dev).to(dt)
+        runs = {"fixed_order": lambda *a: L.moe_layer(*a, mcfg),
+                "index_add": index_add_combine}
+        row = {}
+        for name, fn in runs.items():
+            res = []
+            for _ in range(2):
+                y = fn(*args)
+                res.append([y.detach()] + list(
+                    torch.autograd.grad(y, args, cot)))
+            row[name + "_bit_equal"] = all(
+                torch.equal(a, b) for a, b in zip(*res))
+            if name == "fixed_order":
+                dest, keep, _ = L.moe_dispatch_indices(
+                    torch.topk((args[0] @ args[1]).float(), k, dim=-1)[1], E,
+                    max(8, int(mcfg.capacity_factor * k * T_tok / E)))
+                row["tokens_with_duplicate_slots"] = int(
+                    (keep.sum(dim=1) >= 2).sum())
+                row["kept_share"] = float(keep.float().mean())
+        check(row["fixed_order_bit_equal"],
+              f"lm.check: moe_layer ({dt}) forward/backward do not repeat "
+              "bit for bit")
+        out[str(dt).replace("torch.", "")] = row
+    return out
 
 
 def lm_serve(dev):
@@ -2594,9 +2684,8 @@ def lm_launch(dev):
     of tests/test_checkpoint.py::test_crash_resume_bitexact on the card at
     the launcher's settings, for the smoke configs of ``LM_RESUME_ARCHS``
     (dense and MoE): crash at 7, resume from 5, run to 12; the last three
-    losses against the uninterrupted run's (bit for bit, or the largest
-    relative difference <= 1e-5: the MoE combine's ``index_add`` adds with
-    atomics on the GPU)."""
+    losses against the uninterrupted run's, bit for bit (the MoE combine
+    sums in a fixed order)."""
     import os
     import re
     import shutil
@@ -2660,7 +2749,7 @@ def lm_launch(dev):
                   f"lm.launch: {arch} resumed at step {t2.step}, not 5")
             got = t2.run()["history"]
             rel = max(abs(a - b) / abs(b) for a, b in zip(got[-3:], ref[-3:]))
-            check(rel <= 1e-5, f"lm.launch: {arch} resumed losses "
+            check(got[-3:] == ref[-3:], f"lm.launch: {arch} resumed losses "
                   f"{got[-3:]} vs {ref[-3:]}")
             crash[arch] = {"crash_at": 7, "resumed_at": 5, "last3": got[-3:],
                            "last3_ref": ref[-3:],
@@ -2687,6 +2776,311 @@ def lm_phase(dev):
           f"lm: the LM path launched a search kernel: {launches}")
     emit({"phase": "lm", "port_kernel_launches": launches,
           "secs": time.perf_counter() - t0})
+
+
+# --- phase 2c: the GNN family, DLRM training, the quickstart -----------------
+GNN_ARCHS = ("schnet", "gat-cora", "egnn", "gin-tu")     # the reference's order
+# every arch at these shapes; the first two also against the port on the CPU
+GNN_RUN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
+GNN_CPU_SHAPES = ("full_graph_sm", "molecule")
+# full-batch-large: gin-tu only (schnet's [E, 300] RBF tensor alone would be
+# ~74 GB there, egnn's [E, 129] edge inputs ~32 GB a layer, gat ~50-60 GB)
+GNN_LARGE = (("gin-tu", "ogb_products"),)
+GNN_STEPS = 3
+# the most the CPU run's own spread may widen the card-vs-CPU rtol by, /2
+GNN_SPREAD_CAP = 5e-4
+DLRM_TRAIN_STEPS = 3
+
+
+def gnn_dims(shape):
+    """(nodes, edges, padded nodes, padded edges, features, classes,
+    graphs) of a GNN shape, as the reference's cell counts them
+    (``repro.models.api._gnn_dims``: the sampled bounds of minibatch_lg,
+    128 molecules, counts padded to /512)."""
+    d = shape.dims
+    if shape.shape_id == "minibatch_lg":
+        n, e, f, c, g = (d["sub_nodes"], d["sub_edges"], d["d_feat"],
+                         d.get("n_classes", 16), 1)
+    elif shape.shape_id == "molecule":
+        n, e = d["n_nodes"] * d["batch"], d["n_edges"] * d["batch"]
+        f, c, g = d["d_feat"], 16, d["batch"]
+    else:
+        n, e, f, c, g = (d["n_nodes"], d["n_edges"], d["d_feat"],
+                         d.get("n_classes", 16), 1)
+    return n, e, -(-n // 512) * 512, -(-e // 512) * 512, f, c, g
+
+
+def graph_batch_on(dev, gen, n, e, n_pad, e_pad, f, c, g, task):
+    """``random_graph_batch``'s layout drawn on the card (ogb_products'
+    62M edges would take the host tens of seconds); pad nodes and edges
+    carry zero masks, and a pad edge indexes node 0."""
+    import torch
+    real_n = torch.arange(n_pad, device=dev) < n
+    real_e = torch.arange(e_pad, device=dev) < e
+
+    def ints(lo, hi, size):
+        return torch.randint(lo, hi, (size,), generator=gen, device=dev)
+
+    node_mask = real_n.float()
+    return {
+        "node_feat": torch.randn((n_pad, f), generator=gen, device=dev),
+        "pos": torch.randn((n_pad, 3), generator=gen, device=dev) * 3.0,
+        "atom_z": ints(1, 20, n_pad),
+        "edge_src": ints(0, n, e_pad) * real_e,
+        "edge_dst": ints(0, n, e_pad) * real_e,
+        "node_mask": node_mask, "edge_mask": real_e.float(),
+        "labels": ints(0, c, n_pad), "label_mask": node_mask.clone(),
+        "graph_ids": torch.sort(ints(0, g, n_pad)).values,
+        "g_labels": (ints(0, c, g) if task == "graph_class"
+                     else torch.randn((g,), generator=gen, device=dev))}
+
+
+def leaf_rel_errs(got, want):
+    """Over the leaves of two trees (``got`` on the card, ``want`` on the
+    CPU): the largest relative Frobenius error of a leaf, and the largest
+    of a leaf's max |got - want| over its max |want|."""
+    from repro_torch.tree import tree_leaves
+    fro, peak = 0.0, 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        d = a.cpu() - b
+        fro = max(fro, float(d.norm() / b.norm().clamp_min(1e-30)))
+        peak = max(peak, float(d.abs().max() / b.abs().max().clamp_min(
+            1e-30)))
+    return fro, peak
+
+
+def gnn_cell(arch, shape_id, dev, gen):
+    """``GNN_STEPS`` train steps of one (arch, shape) on the card (AdamW,
+    the reference cell's defaults), each on the same parameters and batch:
+    the first step's seconds, the steady mean, the peak memory, and
+    whether steps 1 and 2 (identical inputs) repeat bit for bit (reported:
+    ``index_add`` adds with atomics).  On ``GNN_CPU_SHAPES`` the card's
+    loss and gradients against the port on the CPU on the same weights and
+    batch: the loss within rtol 1e-4, each gradient leaf within 1e-4 in
+    relative Frobenius norm (as tests/test_torch_lm.py holds gradient
+    leaves; each leaf's largest error over its largest entry is printed
+    beside it), each limit widened by twice the CPU run's own spread on
+    it (its change when the parameters are perturbed by 2^-23 relative
+    noise, about one fp32 rounding, over three seeds), capped at
+    ``GNN_SPREAD_CAP``, as tests/test_torch_gnn.py widens its limits."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import gnn as G
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_leaves, tree_map, value_and_grad
+    spec = get_arch(arch)
+    n, e, n_pad, e_pad, f, c, g = gnn_dims(spec.shape(shape_id))
+    task = spec.model_cfg.task
+    if shape_id == "molecule" and task == "node_class":
+        task = "graph_class"
+    cfg = dataclasses.replace(spec.model_cfg, n_classes=c, task=task)
+    batch = graph_batch_on(dev, gen, n, e, n_pad, e_pad, f, c, g, task)
+    params = G.init_gnn(cfg, f, gen, dev)
+    ocfg = opt.AdamWConfig()
+    state = opt.adamw_init(params, ocfg)
+    step = G.make_gnn_train_step(cfg, ocfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs, outs = [], []
+    for i in range(GNN_STEPS):
+        t0 = time.perf_counter()
+        out = step(params, state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if i < 2:
+            outs.append(out)
+    peak = torch.cuda.max_memory_allocated()
+    (p1, s1, m1), (p2, s2, m2) = outs
+    loss, gnorm = float(m1["loss"]), float(m1["grad_norm"])
+    check(math.isfinite(loss) and math.isfinite(gnorm),
+          f"gnn/{arch}/{shape_id}: loss {loss}, grad norm {gnorm}")
+    row = {"phase": "gnn", "arch": arch, "shape": shape_id, "task": task,
+           "nodes": n, "edges": e, "padded": [n_pad, e_pad], "d_feat": f,
+           "classes": c, "graphs": g,
+           "edge_bytes": sum(batch[k].numel() * batch[k].element_size()
+                             for k in ("edge_src", "edge_dst", "edge_mask")),
+           "first_step_s": secs[0],
+           "steady_step_s": sum(secs[1:]) / len(secs[1:]),
+           "max_memory_allocated": peak, "loss": loss, "grad_norm": gnorm,
+           "repeat_bit_equal": bool(torch.equal(m1["loss"], m2["loss"]) and all(
+               torch.equal(a, b) for a, b in zip(
+                   tree_leaves((p1, s1.mu, s1.nu)),
+                   tree_leaves((p2, s2.mu, s2.nu)))))}
+    if shape_id in GNN_CPU_SHAPES:
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        cpu_batch = {k: v.cpu() for k, v in batch.items()}
+        cpu = value_and_grad(G.gnn_loss, cpu_params, cpu_batch, cfg)
+        card = value_and_grad(G.gnn_loss, params, batch, cfg)
+
+        def loss_err(a, b):
+            return float(abs(a.cpu() - b) / abs(b))
+
+        spread = [0.0, 0.0]
+        for seed in range(3):
+            noise = torch.Generator().manual_seed(seed)
+            moved = value_and_grad(G.gnn_loss, tree_map(
+                lambda t: t * (1 + torch.randn(t.shape, generator=noise)
+                               * 2.0 ** -23), cpu_params), cpu_batch, cfg)
+            spread = [max(spread[0], loss_err(moved[0], cpu[0])),
+                      max(spread[1], leaf_rel_errs(moved[1], cpu[1])[0])]
+        limits = [1e-4 + 2 * min(x, GNN_SPREAD_CAP) for x in spread]
+        row["cpu_loss_rel_err"] = loss_err(card[0], cpu[0])
+        row["cpu_grad_rel_err"], row["cpu_grad_max_err_over_max"] = \
+            leaf_rel_errs(card[1], cpu[1])
+        row["cpu_spread"], row["cpu_limits"] = spread, limits
+        check(row["cpu_loss_rel_err"] <= limits[0]
+              and row["cpu_grad_rel_err"] <= limits[1],
+              f"gnn/{arch}/{shape_id}: the card's loss and gradients differ "
+              f"from the CPU's: {row['cpu_loss_rel_err']}, "
+              f"{row['cpu_grad_rel_err']} (limits {limits})")
+    return row
+
+
+def gnn_phase(dev):
+    """The GNN family (phase 2c): every arch at ``GNN_RUN_SHAPES``, then
+    ``GNN_LARGE``; one line an (arch, shape).  Its path reaches none of
+    the six kernels (the reference's GNN is plain JAX): the counts are
+    reset before it and must read 0 after."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(4)
+    ops.reset_launch_counts()
+    cells = [(a, s) for a in GNN_ARCHS for s in GNN_RUN_SHAPES] + \
+        list(GNN_LARGE)
+    for arch, shape_id in cells:
+        emit(gnn_cell(arch, shape_id, dev, gen))
+        torch.cuda.empty_cache()
+    launches = dict(ops.LAUNCHES)
+    check(not any(launches.values()),
+          f"gnn: the GNN path launched a search kernel: {launches}")
+    emit({"phase": "gnn", "cells": len(cells),
+          "port_kernel_launches": launches,
+          "secs": time.perf_counter() - t0})
+
+
+def bits_checksum(t):
+    """Two int64 sums (wrapping) over a tensor's 32-bit words and their
+    squares: equal for equal bits, and moved by any one changed word."""
+    import torch
+    words = t.detach().reshape(-1).view(torch.int32)
+    s1 = s2 = 0
+    for chunk in words.split(1 << 26):
+        c = chunk.to(torch.int64)
+        s1 += int(c.sum())
+        s2 += int((c * c).sum())
+    return [s1 % 2 ** 64, s2 % 2 ** 64]
+
+
+def dlrm_train(dev):
+    """``dlrm.train``: dlrm-mlperf at its widths with ``VOCAB_CAP`` rows a
+    table (12.3 GB of tables), ``train_batch`` B=65,536, fp32 AdamW with
+    its moments, ``DLRM_TRAIN_STEPS`` donated steps (parameters and moments
+    updated in place); the step seconds, losses and peak memory.  Then the
+    same init and first step again: whether the loss, parameters and
+    moments repeat bit for bit, and which leaves differ (reported, by
+    ``bits_checksum``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import dlrm_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import dlrm as M
+    from repro_torch.train import optimizer as opt
+    from repro_torch.tree import tree_flatten_with_path
+    t_phase = time.perf_counter()
+    arch = get_arch("dlrm-mlperf")
+    cfg = dataclasses.replace(arch.model_cfg, vocab_cap=VOCAB_CAP)
+    B = arch.shape("train_batch").dims["batch"]
+    ocfg = opt.AdamWConfig()
+    step = M.make_dlrm_train_step(cfg, ocfg, donate=True)
+    nb = dlrm_batch(cfg.n_dense, [min(v, VOCAB_CAP) for v in cfg.vocab_sizes],
+                    B, seed=3)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in nb.items()}
+
+    def fresh():
+        params = M.init_dlrm(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        return params, opt.adamw_init(params, ocfg)
+
+    def fingerprint(loss, params, state):
+        return {"loss": float(loss), **{
+            path: bits_checksum(t) for path, t in tree_flatten_with_path(
+                {"params": params, "mu": state.mu, "nu": state.nu})}}
+
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state = fresh()
+    torch.cuda.synchronize()
+    init_secs = time.perf_counter() - t0
+    secs, losses = [], []
+    for i in range(DLRM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        if i == 0:
+            first = fingerprint(m["loss"], params, state)
+            gnorm = float(m["grad_norm"])
+    peak = torch.cuda.max_memory_allocated()
+    del params, state, m
+    torch.cuda.empty_cache()
+    params, state = fresh()
+    params, state, m = step(params, state, batch)
+    again = fingerprint(m["loss"], params, state)
+    del params, state, m
+    torch.cuda.empty_cache()
+    launches = dict(ops.LAUNCHES)
+    check(all(math.isfinite(x) for x in losses + [gnorm]),
+          f"dlrm.train: losses {losses}, grad norm {gnorm}")
+    check(not any(launches.values()),
+          f"dlrm.train: the DLRM path launched a search kernel: {launches}")
+    return {"phase": "dlrm.train", "batch": B,
+            "table_rows": sum(cfg.table_rows()),
+            "table_gb": sum(cfg.table_rows()) * cfg.embed_dim * 4 / 1e9,
+            "param_count": cfg.param_count(), "init_secs": init_secs,
+            "step_secs": secs, "losses": losses, "grad_norm": gnorm,
+            "max_memory_allocated": peak,
+            "repeat_bit_equal": first == again,
+            "repeat_differs_in": [k for k in first if first[k] != again[k]],
+            "port_kernel_launches": launches,
+            "cuts": f"vocab_cap {VOCAB_CAP} a table (the full Criteo "
+                    "vocabulary's 96 GB of tables do not fit one card, "
+                    "before gradients and moments)",
+            "secs": time.perf_counter() - t_phase}
+
+
+def quickstart_phase(main_launches):
+    """``examples/quickstart_torch.py`` as a subprocess on the card: exit
+    0, its "CRouting skipped" line, and its fused engine's launches (its
+    last line), which count in ``main_launches``."""
+    import os
+    import re
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "examples" / "quickstart_torch.py")],
+        capture_output=True, text=True, cwd=ROOT, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    skipped = re.search(r"^CRouting skipped .*$", proc.stdout, re.M)
+    counts = re.search(r"^kernel launches: (\{.*\})$", proc.stdout, re.M)
+    launches = json.loads(counts.group(1)) if counts else {}
+    row = {"phase": "quickstart", "rc": proc.returncode,
+           "secs": time.perf_counter() - t0,
+           "stdout": proc.stdout.strip().splitlines(),
+           "stderr_tail": proc.stderr[-2000:] if proc.returncode else "",
+           "launches": launches}
+    emit(row)
+    check(proc.returncode == 0 and skipped is not None,
+          f"quickstart: rc {proc.returncode}, no 'CRouting skipped' line")
+    check({k for k, v in launches.items() if v} ==
+          {"fused_expand", "pool_merge"},
+          f"quickstart: the fused engine launched {launches}")
+    for k, v in launches.items():
+        main_launches[k] = main_launches.get(k, 0) + v
 
 
 def router_sweep(main_launches):
@@ -3448,7 +3842,11 @@ def main() -> int:
           "l2_distance": check_l2_distance(dev)})
     # 2b. the LM family: granite-8b serving, granite-moe training, launcher
     lm_phase(dev)
+    # 2c. the GNN family, DLRM training, the quickstart example
+    gnn_phase(dev)
+    emit(dlrm_train(dev))
     main_launches = {}
+    quickstart_phase(main_launches)
     # 3. hnsw: the main path with its hierarchy, at a reduced n
     t0 = time.perf_counter()
     ds = make_dataset(n_base=HNSW_BASE, n_query=1024, dim=128, n_clusters=64,

@@ -1,9 +1,8 @@
 """Architecture registry of the port: ``get_arch(id)`` / ``list_archs()``.
 
-The counterpart of ``repro.configs``, copied and cut to what the port runs:
-the five LM archs, the dlrm-mlperf recsys model and the paper's own ANNS
-serving config, in the reference's order (the GNN ids come with the GNN
-family).  Each module defines SPEC (an ArchSpec).
+The counterpart of ``repro.configs``: the five LM archs, the four GNN
+archs, the dlrm-mlperf recsys model and the paper's own ANNS serving
+config, in the reference's order.  Each module defines SPEC (an ArchSpec).
 """
 from __future__ import annotations
 
@@ -23,7 +22,7 @@ class ShapeSpec:
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
-    family: str               # lm | recsys | anns
+    family: str               # lm | gnn | recsys | anns
     model_cfg: Any
     shapes: Tuple[ShapeSpec, ...]
     source: str = ""          # provenance [arXiv / hf]
@@ -42,6 +41,10 @@ _MODULES = {
     "qwen1.5-4b": "qwen1_5_4b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "arctic-480b": "arctic_480b",
+    "schnet": "schnet",
+    "gat-cora": "gat_cora",
+    "egnn": "egnn",
+    "gin-tu": "gin_tu",
     "dlrm-mlperf": "dlrm_mlperf",
     "crouting-anns": "crouting_paper",
 }

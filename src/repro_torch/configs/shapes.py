@@ -15,6 +15,25 @@ LM_SHAPES = (
               "(full-attention archs: see DESIGN.md §5 long_500k note)"),
 )
 
+GNN_SHAPES = (
+    ShapeSpec("full_graph_sm", "train",
+              dict(n_nodes=2708, n_edges=10556, d_feat=1433, n_classes=7),
+              "full-batch (cora-like)"),
+    ShapeSpec("minibatch_lg", "train",
+              dict(n_nodes=232_965, n_edges=114_615_892, batch_nodes=1024,
+                   fanout1=15, fanout2=10, d_feat=602, n_classes=41,
+                   # sampled-subgraph static bounds: 1024*(1+15+150) nodes
+                   sub_nodes=169_984, sub_edges=168_960),
+              "sampled-training (reddit-like, real neighbor sampler)"),
+    ShapeSpec("ogb_products", "train",
+              dict(n_nodes=2_449_029, n_edges=61_859_140, d_feat=100,
+                   n_classes=47),
+              "full-batch-large"),
+    ShapeSpec("molecule", "train",
+              dict(n_nodes=30, n_edges=64, batch=128, d_feat=16),
+              "batched-small-graphs"),
+)
+
 RECSYS_SHAPES = (
     ShapeSpec("train_batch", "train", dict(batch=65_536), "training"),
     ShapeSpec("serve_p99", "serve", dict(batch=512), "online-inference"),

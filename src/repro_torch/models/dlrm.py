@@ -1,15 +1,19 @@
 """DLRM (Naumov et al., arXiv:1906.00091), the MLPerf recsys config:
-inference (forward, serve, retrieval) in PyTorch.
+inference (forward, serve, retrieval) and training in PyTorch.
 
-The counterpart of ``repro.models.dlrm``.  The JAX lookup
-(``jnp.take`` + ``jax.ops.segment_sum``) becomes ``index_select`` +
-``index_add_``; no hand-written kernel stands behind it, as no Pallas kernel
-stood behind the JAX one.  Parameters keep the JAX package's layout so that
-the two can be compared: ``{"tables": [[rows, dim]], "bot": [{"w": [in,
-out], "b": [out]}], "top": [...]}`` with ``x @ w + b``.
+The counterpart of ``repro.models.dlrm``.  The JAX lookups become
+``F.embedding`` (single-hot; its backward repeats bit for bit on the CPU,
+but on the GPU not for a row looked up thousands of times in a batch, as
+the small tables' rows are) and ``index_select`` + ``index_add_``
+(multi-hot bags); no hand-written kernel stands behind them, as no Pallas
+kernel stood behind the JAX ones.  Parameters keep the JAX package's
+layout so that the two can be compared: ``{"tables": [[rows, dim]],
+"bot": [{"w": [in, out], "b": [out]}], "top": [...]}`` with ``x @ w +
+b``.  ``dlrm_loss`` / ``make_dlrm_train_step`` train it with the port's
+AdamW.
 
 Not ported yet: the table-parallel ``shard_map`` lookup (the sharding
-slice) and ``dlrm_loss`` / ``make_dlrm_train_step`` (the training slice).
+slice, with the cells and the dry run).
 """
 from __future__ import annotations
 
@@ -19,8 +23,11 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.train import optimizer as opt
+from repro_torch.tree import value_and_grad
 
 # Criteo-1TB per-feature vocabulary sizes (MLPerf reference, max-ind-range=40M)
 CRITEO_VOCAB_SIZES = [
@@ -134,7 +141,7 @@ def table_parallel_lookup(tables, ids):
     """Single-hot lookup of ids [B, n_sparse] in each table, on one device
     (the JAX function's no-mesh branch; its row-sharded form waits for the
     sharding slice)."""
-    return [t.index_select(0, ids[:, i].long()) for i, t in enumerate(tables)]
+    return [F.embedding(ids[:, i], t) for i, t in enumerate(tables)]
 
 
 def dot_interaction(vectors):
@@ -154,6 +161,31 @@ def dlrm_forward(params: Params, batch, cfg: DlrmConfig):
     z = torch.stack([x] + embs, dim=1)                       # [B, 27, 128]
     feat = torch.cat([x, dot_interaction(z)], dim=-1)        # [B, 479]
     return _mlp(params["top"], feat)[:, 0]
+
+
+def dlrm_loss(params: Params, batch, cfg: DlrmConfig):
+    """Mean binary cross-entropy of the logits against ``labels`` [B], in
+    the reference's stable form."""
+    logits = dlrm_forward(params, batch, cfg).float()
+    y = batch["labels"].float()
+    return (torch.relu(logits) - logits * y
+            + torch.log1p(torch.exp(-logits.abs()))).mean()
+
+
+def make_dlrm_train_step(cfg: DlrmConfig, ocfg: opt.AdamWConfig,
+                         donate: bool = False):
+    """One AdamW step on ``dlrm_loss``.  ``donate`` writes the new
+    parameters and moments into the ones passed in (``adamw_update``'s
+    donate form): at 4M rows a table the tables, their gradients and two
+    moments take ~49 GB, and a second copy of three of them would not fit
+    one 80 GB card."""
+    def train_step(params, opt_state, batch):
+        loss, grads = value_and_grad(dlrm_loss, params, batch, cfg)
+        new_params, new_state, metrics = opt.adamw_update(
+            grads, opt_state, params, ocfg, donate=donate)
+        metrics["loss"] = loss
+        return new_params, new_state, metrics
+    return train_step
 
 
 def make_dlrm_serve_step(cfg: DlrmConfig):

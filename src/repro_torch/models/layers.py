@@ -264,8 +264,12 @@ def moe_layer(x, gate_w, w_gate, w_up, w_down, cfg: MoeConfig):
     """x [T, D]; expert weights [E, D, F] / [E, F, D]. Returns [T, D].
 
     Token-sorted static-capacity dispatch: gather tokens into [E, C, D]
-    buffers, batched per-expert SwiGLU einsum, weighted combine by a
-    slot-indexed scatter-add into token space.
+    buffers, batched per-expert SwiGLU einsum, weighted combine.  The
+    combine gathers each token's k weighted slot rows through ``dest``
+    (a dropped choice reads the zero pad row) and adds them in choice
+    order, so its sum, and the gather's backward (each slot belongs to at
+    most one (token, choice)), run in a fixed order on every device; a
+    scatter-add into token space would add with atomics on the GPU.
     """
     T, Dm = x.shape
     E, k = cfg.n_experts, cfg.top_k
@@ -284,5 +288,8 @@ def moe_layer(x, gate_w, w_gate, w_up, w_down, cfg: MoeConfig):
     wslot = ye.new_zeros(E * cap + 1).index_put(
         (slot,), (probs * keep).reshape(-1).to(ye.dtype))             # [E*cap]
     upd = ye.reshape(E * cap, Dm) * wslot[:-1, None]
-    y = ye.new_zeros(T + 1, Dm).index_add(0, src, upd)
-    return y[:T].to(x.dtype)
+    rows = F.embedding(dest, torch.cat([upd, upd.new_zeros(1, Dm)]))  # [T, k, D]
+    y = rows[:, 0]
+    for j in range(1, k):
+        y = y + rows[:, j]
+    return y.to(x.dtype)

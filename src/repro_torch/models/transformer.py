@@ -10,13 +10,14 @@ forward (indexing ``v[i]`` a layer would make every layer's backward
 allocate a zero tensor the size of the whole stack), with
 ``torch.utils.checkpoint`` per layer when ``cfg.remat``.  Row lookups go
 through ``F.embedding``, whose backward sums in a fixed order on the CPU
-and the GPU (an indexing backward on the CPU adds with atomics in
-parallel), so a resumed run repeats an uninterrupted one bit for bit on
-the CPU, and on the GPU for a dense config.  A MoE layer's combine
-(``index_add``) adds with atomics on the GPU, so there a resumed MoE run
-is bit-equal only where those adds happen to land in the same order (as
-they did for granite-moe-1b-a400m's smoke config in ``chip_smoke.py``'s
-``lm.launch``); otherwise it differs by rounding.
+(an indexing backward there adds with atomics in parallel), and a MoE
+layer combines its experts' rows by a gather and a sum in choice order
+(``layers.moe_layer``), so a resumed run repeats an uninterrupted one bit
+for bit on the CPU and on the GPU, for dense and MoE configs alike
+(``chip_smoke.py``'s ``lm.launch``).  One limit on the GPU: there
+``F.embedding``'s backward did not repeat for rows looked up thousands of
+times in one batch (DLRM's small tables), which a token batch of that
+size would also do.
 
 Steps:
   train_step    causal-LM loss + AdamW update (train_* shapes)

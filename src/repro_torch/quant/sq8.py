@@ -1,10 +1,12 @@
 """SQ8 scalar quantization: table codes and the distance lower bound.
 
-The counterpart of ``repro.quant.sq8`` (its symmetric int8 gradient
-quantizers belong to training and are not ported).  Each dimension j stores
-an affine grid ``x ~ lo[j] + code * scale[j]`` with ``code in [0, 255]``, so
-a row costs d bytes instead of 4d: the stage-1 estimate of the two-stage
-search path reads 4x fewer bytes than the fp32 row it replaces.
+The counterpart of ``repro.quant.sq8``, with its symmetric per-tensor
+int8 quantizer (``quantize_int8``; ``train/compress.py`` re-exports it
+for gradient compression, so there is one implementation).  Each
+dimension j stores an affine grid ``x ~ lo[j] + code * scale[j]`` with
+``code in [0, 255]``, so a row costs d bytes instead of 4d: the stage-1
+estimate of the two-stage search path reads 4x fewer bytes than the fp32
+row it replaces.
 
 With ``xhat = lo + code * scale`` the reconstruction error per dimension is
 ``|x_j - xhat_j| <= eps_j = scale_j / 2`` (round-to-nearest, plus a small
@@ -25,7 +27,7 @@ engines take the same stage-1 decisions on the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,3 +96,34 @@ def sq8_estimate(queries: torch.Tensor, xhat: torch.Tensor,
     slack = 2.0 * warp_order_sum(delta.abs() * eps)
     lb2 = ad2 - slack
     return ad2, torch.where(lb2 < 0, torch.zeros_like(lb2), lb2)
+
+
+# --------------------------------------------------------------------------
+# Symmetric per-tensor int8 (gradient compression; train/compress.py
+# re-exports these so there is exactly one int8 quantizer implementation).
+# --------------------------------------------------------------------------
+def quantize_int8_with_scale(x: torch.Tensor, scale,
+                             generator: Optional[torch.Generator] = None
+                             ) -> torch.Tensor:
+    """x / scale -> int8 in [-127, 127]: round half to even, or stochastic
+    rounding (``floor(y + u)``, u uniform in [0, 1) from ``generator``,
+    which must live on x's device) when a generator is given."""
+    y = x / scale
+    if generator is not None:
+        y = torch.floor(y + torch.rand(y.shape, generator=generator,
+                                       device=y.device, dtype=y.dtype))
+    else:
+        y = torch.round(y)
+    return torch.clamp(y, -127, 127).to(torch.int8)
+
+
+def quantize_int8(x: torch.Tensor,
+                  generator: Optional[torch.Generator] = None):
+    """Returns (q int8, scale) with per-tensor amax/127 scale."""
+    amax = x.abs().max() + 1e-12
+    scale = amax / 127.0
+    return quantize_int8_with_scale(x, scale, generator), scale
+
+
+def dequantize_int8(q: torch.Tensor, scale) -> torch.Tensor:
+    return q.to(torch.float32) * scale

@@ -64,8 +64,13 @@ def adamw_init(params, cfg: AdamWConfig) -> AdamWState:
 
 
 @torch.no_grad()
-def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
-    """Returns (new_params, new_state, metrics)."""
+def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig,
+                 donate: bool = False):
+    """Returns (new_params, new_state, metrics).  With ``donate`` the new
+    parameters and moments are written into ``params`` and ``state``'s
+    tensors, leaf by leaf, and returned in them (bit for bit the values
+    the functional form returns): the counterpart of a jitted step that
+    donates its parameters and state, so a step holds each once."""
     dt = getattr(torch, cfg.state_dtype)
     gnorm = global_norm(grads)
     scale = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
@@ -85,9 +90,15 @@ def adamw_update(grads, state: AdamWState, params, cfg: AdamWConfig):
         newp = p32 - lr * (d + cfg.weight_decay * p32)
         return newp.to(p.dtype), m32.to(dt), v32.to(dt)
 
-    out = [upd(p, g, m, v) for p, g, m, v in zip(
-        tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu),
-        tree_leaves(state.nu))]
+    leaves = zip(tree_leaves(params), tree_leaves(grads),
+                 tree_leaves(state.mu), tree_leaves(state.nu))
+    if donate:
+        for p, g, m, v in leaves:
+            for old, new in zip((p, m, v), upd(p, g, m, v)):
+                old.copy_(new)
+        return params, AdamWState(step=step, mu=state.mu, nu=state.nu), {
+            "grad_norm": gnorm, "lr": lr}
+    out = [upd(p, g, m, v) for p, g, m, v in leaves]
     newp = tree_unflatten(params, [o[0] for o in out])
     newm = tree_unflatten(params, [o[1] for o in out])
     newv = tree_unflatten(params, [o[2] for o in out])

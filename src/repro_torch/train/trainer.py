@@ -36,7 +36,8 @@ class TrainerConfig:
     grad_accum: int = 1
     log_every: int = 10
     step_deadline_s: float = 0.0     # >0: watchdog flags stragglers
-    grad_compress: bool = False      # int8 all-reduce on the pod axis (not read yet)
+    # int8 all-reduce (train/compress.py); not read, as in the reference
+    grad_compress: bool = False
 
 
 def make_accum_train_step(loss_fn, ocfg: opt.AdamWConfig, n_accum: int):

@@ -4,7 +4,22 @@ parameters carried over by ``params_from_jax``.
 Smoke config (``vocab_cap=1000``): the same numpy batches go through
 ``repro.models.dlrm`` and ``repro_torch.models.dlrm`` on the CPU.  Logits
 and scores agree within rtol/atol 1e-5 (fp32 throughout; the two matrix
-libraries sum in different orders), retrieval ids exactly.
+libraries sum in different orders), retrieval ids exactly.  Training
+(``dlrm_loss``, its gradients and one ``make_dlrm_train_step`` with AdamW
+at lr 1e-3 from step 1: new parameters and both moments): rtol 1e-4, atol
+1e-6 elementwise, except the new parameters' atol, which is widened by
+twice the reference's own spread on them: their largest absolute change
+when the reference's parameters are perturbed by 2^-23 relative noise
+(about one fp32 rounding), over three noise seeds, capped at
+STEP_SPREAD_CAP = 5e-5 (a twentieth of the step's lr), so no atol passes
+1.01e-4.  The first Adam step moves a weight by lr * g / (|g| + 1e-8);
+thousands of this model's gradients lie near 1e-8 (dead ReLUs, lognormal
+inputs), where a rounding-level change of g moves that by percents of lr.
+Measured on an x86 CPU with jax 0.9.0 (the reference jitted): the
+gradients agree within 7.8e-8 absolute; the spread on the new parameters
+is 3.1e-5 (B=64) and 4.5e-5 (B=7), and the port's largest error there
+3.3e-5 and 2.4e-5.  The donated step equals the functional one bit for
+bit.
 """
 import jax
 import jax.numpy as jnp
@@ -12,10 +27,19 @@ import numpy as np
 import pytest
 import torch
 
+from repro.data.synthetic import dlrm_batch as j_dlrm_batch
 from repro.models import dlrm as J
+from repro.train import optimizer as jopt
 
 from repro_torch.configs import get_arch, list_archs
+from repro_torch.data.synthetic import dlrm_batch
 from repro_torch.models import dlrm as T
+from repro_torch.train import optimizer as topt
+from repro_torch.tree import tree_flatten_with_path, value_and_grad
+
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-6)
+STEP_SPREAD_CAP = 5e-5
+OCFG = dict(lr=1e-3, warmup_steps=1)
 
 
 @pytest.fixture(scope="module")
@@ -125,6 +149,7 @@ def test_configs_name_the_retrieval_shapes():
     assert spec.shape("serve_p99").dims == dict(batch=512)
     assert list_archs() == ["granite-8b", "phi4-mini-3.8b", "qwen1.5-4b",
                             "granite-moe-1b-a400m", "arctic-480b",
+                            "schnet", "gat-cora", "egnn", "gin-tu",
                             "dlrm-mlperf"]
     assert get_arch("crouting-anns").model_cfg.m == 32
     with pytest.raises(KeyError):
@@ -143,3 +168,83 @@ def test_init_dlrm_runs_on_the_gpu_unless_asked_for_the_cpu():
     assert torch.isfinite(s).all() and ((s > 0) & (s < 1)).all()
     q = T.init_dlrm(cfg, torch.Generator().manual_seed(0), device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(p["tables"], q["tables"]))
+
+
+def _train_batch(cfg, B, seed):
+    b = dlrm_batch(cfg.n_dense, cfg.table_rows(), B, seed)
+    ref = j_dlrm_batch(cfg.n_dense, cfg.table_rows(), B, seed)
+    assert all(np.array_equal(b[k], ref[k]) for k in ref)
+    return ({k: jnp.asarray(v) for k, v in b.items()},
+            {k: torch.from_numpy(v) for k, v in b.items()})
+
+
+def _close(got_tree, want_tree, atol=TRAIN_TOL["atol"]):
+    got = tree_flatten_with_path(got_tree)
+    want = jax.tree_util.tree_leaves(want_tree)
+    assert len(got) == len(want)
+    for (path, g), w in zip(got, want):
+        np.testing.assert_allclose(g.detach().numpy(), np.asarray(w),
+                                   err_msg=path, rtol=TRAIN_TOL["rtol"],
+                                   atol=atol)
+
+
+@pytest.mark.parametrize("B,seed", [(64, 0), (7, 1)])
+def test_loss_gradients_and_train_step_match_jax(carried, B, seed):
+    jcfg, jp, cfg, tp = carried
+    jb, tb = _train_batch(cfg, B, seed)
+    jo, to = jopt.AdamWConfig(**OCFG), topt.AdamWConfig(**OCFG)
+
+    @jax.jit
+    def run(params):
+        loss, grads = jax.value_and_grad(J.dlrm_loss)(params, jb, jcfg)
+        new, state, metrics = J.make_dlrm_train_step(jcfg, jo)(
+            params, jopt.adamw_init(params, jo), jb)
+        return loss, grads, new, state, metrics
+
+    jl, jg, jnew, js, jm = run(jp)
+    spread = 0.0
+    for s in range(3):
+        rng = np.random.default_rng(100 + s)
+        moved = run(jax.tree_util.tree_map(
+            lambda a: a * (1 + jnp.asarray(rng.normal(size=a.shape),
+                                           jnp.float32) * 2.0 ** -23), jp))[2]
+        spread = max(spread, max(
+            float(np.abs(np.asarray(a) - np.asarray(b)).max())
+            for a, b in zip(jax.tree_util.tree_leaves(moved),
+                            jax.tree_util.tree_leaves(jnew))))
+    tl, tg = value_and_grad(T.dlrm_loss, tp, tb, cfg)
+    _close(tl, jl)
+    _close(tg, jg)
+    tnew, ts, tm = T.make_dlrm_train_step(cfg, to)(
+        tp, topt.adamw_init(tp, to), tb)
+    _close(tm["loss"], jm["loss"])
+    _close(tm["grad_norm"], jm["grad_norm"])
+    _close(tnew, jnew,
+           atol=TRAIN_TOL["atol"] + 2 * min(spread, STEP_SPREAD_CAP))
+    _close(ts.mu, js.mu)
+    _close(ts.nu, js.nu)
+
+
+def test_donated_train_step_equals_the_functional_one(carried):
+    """Two steps each way from the same start: the donated form writes
+    into the tensors it was given and returns them, bit for bit the
+    functional form's values."""
+    _, _, cfg, tp = carried
+    to = topt.AdamWConfig(**OCFG)
+    fn = T.make_dlrm_train_step(cfg, to)
+    dn = T.make_dlrm_train_step(cfg, to, donate=True)
+    p_f, s_f = tp, topt.adamw_init(tp, to)
+    p_d = jax.tree_util.tree_map(torch.clone, tp)
+    s_d = topt.adamw_init(p_d, to)
+    first = p_d["tables"][0]
+    for seed in (2, 3):
+        _, tb = _train_batch(cfg, 32, seed)
+        p_f, s_f, m_f = fn(p_f, s_f, tb)
+        p_d, s_d, m_d = dn(p_d, s_d, tb)
+        assert torch.equal(m_f["loss"], m_d["loss"])
+    assert p_d["tables"][0] is first
+    for a, b in zip(*(jax.tree_util.tree_leaves(t)
+                      for t in ((p_f, s_f.mu, s_f.nu), (p_d, s_d.mu,
+                                                        s_d.nu)))):
+        assert torch.equal(a, b)
+    assert int(s_d.step) == 2

@@ -191,11 +191,15 @@ new = ["repro_torch.quant.sq8", "repro_torch.kernels.sq8_distance",
        "repro_torch.configs.granite_8b", "repro_torch.configs.phi4_mini_3_8b",
        "repro_torch.configs.qwen1_5_4b",
        "repro_torch.configs.granite_moe_1b_a400m",
-       "repro_torch.configs.arctic_480b"]
+       "repro_torch.configs.arctic_480b", "repro_torch.models.gnn",
+       "repro_torch.configs.schnet", "repro_torch.configs.gat_cora",
+       "repro_torch.configs.egnn", "repro_torch.configs.gin_tu",
+       "repro_torch.train.compress"]
 assert all(m in mods for m in new), (new, mods)
 import chip_smoke
 import importlib.util
-for name in ("dlrm_retrieval_torch", "serve_anns_torch", "train_lm_torch"):
+for name in ("dlrm_retrieval_torch", "serve_anns_torch", "train_lm_torch",
+             "quickstart_torch"):
     spec = importlib.util.spec_from_file_location(
         name, os.path.join({examples!r}, name + ".py"))
     spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -35,6 +35,7 @@ import pytest
 import torch
 
 from repro.configs import get_arch as j_get_arch
+from repro.configs import list_archs as j_list_archs
 from repro.models import layers as JL
 from repro.models import transformer as JT
 
@@ -74,7 +75,9 @@ def _one_thread():
 # configs
 # --------------------------------------------------------------------------
 def test_registry_lists_the_lm_archs_in_the_reference_order():
-    assert list_archs() == LM_ARCHS + ["dlrm-mlperf"]
+    assert list_archs() == LM_ARCHS + ["schnet", "gat-cora", "egnn",
+                                       "gin-tu", "dlrm-mlperf"]
+    assert list_archs() == j_list_archs()
     assert list_archs(include_anns=True)[-1] == "crouting-anns"
 
 
@@ -284,6 +287,51 @@ def test_moe_ffn_and_its_gradients_match_the_reference(dense_residual):
     for n, g in zip(tp, grads[1:]):
         np.testing.assert_allclose(_n(g), np.asarray(jgp[n]), **TOL,
                                    err_msg=n)
+
+
+def test_moe_combine_equals_a_loop_over_token_choices():
+    """``moe_layer``'s combine against a plain loop over (token, choice)
+    on the layer's own expert outputs, every row bit for bit; a capacity
+    of 8 for 64 x 2 choices over 4 experts drops some, and a dropped
+    choice adds nothing.  Against a per-token SwiGLU of the kept choices
+    within rtol = atol = 1e-5 (another summation order)."""
+    T, D, Fd, E, k = 64, 16, 24, 4, 2
+    rng = np.random.default_rng(11)
+    x, gate = (_t(rng.normal(size=s).astype(np.float32))
+               for s in ((T, D), (D, E)))
+    wg, wu = (_t(rng.normal(size=(E, D, Fd)).astype(np.float32) * 0.3)
+              for _ in range(2))
+    wd = _t(rng.normal(size=(E, Fd, D)).astype(np.float32) * 0.3)
+    cfg = TL.MoeConfig(n_experts=E, top_k=k, capacity_factor=0.25)
+    y = TL.moe_layer(x, gate, wg, wu, wd, cfg)
+
+    cap = max(8, int(cfg.capacity_factor * k * T / E))
+    top_val, top_idx = torch.topk(x @ gate, k, dim=-1)
+    probs = torch.softmax(top_val, dim=-1)
+    dest, keep, src = TL.moe_dispatch_indices(top_idx, E, cap)
+    assert 0 < int(keep.sum()) < T * k
+    xe = torch.cat([x, x.new_zeros(1, D)])[src].reshape(E, cap, D)
+    h = torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", xe, wg)) \
+        * torch.einsum("ecd,edf->ecf", xe, wu)
+    ye = torch.einsum("ecf,efd->ecd", h, wd).reshape(E * cap, D)
+    loop = torch.zeros(T, D)
+    for t in range(T):
+        acc = None
+        for j in range(k):
+            row = (ye[dest[t, j]] * probs[t, j] if keep[t, j]
+                   else torch.zeros(D))
+            acc = row if acc is None else acc + row
+        loop[t] = acc
+    assert torch.equal(y, loop)
+
+    want = torch.zeros(T, D)
+    for t in range(T):
+        for j in range(k):
+            if keep[t, j]:
+                e = int(top_idx[t, j])
+                hh = torch.nn.functional.silu(x[t] @ wg[e]) * (x[t] @ wu[e])
+                want[t] += probs[t, j] * (hh @ wd[e])
+    np.testing.assert_allclose(_n(y), _n(want), rtol=1e-5, atol=1e-5)
 
 
 # --------------------------------------------------------------------------
