@@ -5,7 +5,7 @@
 
 Phases, each printing one JSON line:
 
-1. ``build``   — compile the six CUDA kernels (src/repro_torch/csrc/*.cu)
+1. ``build``   — compile the seven CUDA kernels (src/repro_torch/csrc/*.cu)
    with nvcc, one process per source started at once, into
    build/repro_torch/.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
@@ -36,9 +36,14 @@ Phases, each printing one JSON line:
    and [33, 257, 960], Q in {1, 2, Qs, Qs + 1} and C on both sides of the
    streaming/tiled split, d in {33, 100, 960}, an offset view x[3:] and a
    base off 16-byte alignment; l2 and ip, fp32 and bf16 inputs) must agree
-   with its plain version within rtol 1e-4, atol 1e-4*d.
+   with its plain version within rtol 1e-4, atol 1e-4*d; ``segment_sum``
+   (``segment_sum_cases``: one id repeated 65,536 times, 3- and 155-row
+   tables at B = 4,096 and 65,536, empty segments; d in {1, 64, 128,
+   960}; fp32 and bf16) must be bit-equal to its plain version on CPU
+   copies, two calls bit-equal, one counted launch a call.
 2b. ``lm``    — the LM family (``repro_torch.models.transformer``; plain
-   PyTorch and cuBLAS, none of the six kernels: their counts must stay 0).
+   PyTorch and cuBLAS, and ``segment_sum`` for the token embedding's
+   backward; none of the six search kernels: their counts must stay 0).
    ``lm.check``: fp32 at granite-8b's widths with 2 layers: the blockwise
    attention against a naive masked softmax at B=2, S=1024, H=32, dh=128
    (forward 1e-4, gradients 1e-3), the decode step against ``forward``
@@ -46,7 +51,12 @@ Phases, each printing one JSON line:
    CPU's, and ``moe_layer`` there (granite-moe's widths, fp32 and bf16)
    forward and backward twice: outputs and gradients bit-equal (its
    combine gathers and sums in choice order; the ``index_add`` combine it
-   replaced is run twice beside it and reported).  ``lm.serve``:
+   replaced is run twice beside it and reported).  ``lm.repeat``: a
+   granite-moe-1b-a400m smoke step on a batch of 2 x 4,096 tokens that
+   repeats one token 4,096 times, twice: the embedding gradient bit-equal
+   (the other leaves reported), and the ops the step runs that have no
+   deterministic CUDA implementation (``nondeterministic_ops``).
+   ``lm.serve``:
    granite-8b at full width and depth in bf16, prefill B=2 x 4096 and 32
    greedy decode steps (finite logits; the first
    step at cosine >= 0.99 to ``forward`` in fp32 on the same weights, the
@@ -58,8 +68,9 @@ Phases, each printing one JSON line:
    ``--resume``, and an in-process crash at 7, resume from 5, run to 12
    (granite-8b's and granite-moe-1b-a400m's smoke configs) whose last
    three losses equal the uninterrupted run's bit for bit.
-2c. ``gnn``   — the GNN family (``repro_torch.models.gnn``; plain PyTorch,
-   none of the six kernels: their counts must stay 0): three AdamW train
+2c. ``gnn``   — the GNN family (``repro_torch.models.gnn``; plain PyTorch
+   and ``segment_sum``, none of the six search kernels: their counts must
+   stay 0): three AdamW train
    steps of every arch (schnet, gat-cora, egnn, gin-tu) at
    ``full_graph_sm`` (2,708 nodes, 10,556 edges, 1,433 features),
    ``molecule`` (128 graphs x 30 nodes, 64 edges each) and
@@ -68,16 +79,31 @@ Phases, each printing one JSON line:
    61,859,140 edges), counts padded to /512 with zero masks as the
    reference's cells pad; one line each: step seconds (first and steady),
    peak memory, the edge tensors' bytes, a finite loss and grad norm,
-   whether two identical steps repeat bit for bit (reported: ``index_add``
-   adds with atomics), and on the first two shapes the loss and gradients
-   against the port on the CPU (rtol 1e-4).  ``dlrm.train``: dlrm-mlperf
-   at its widths with 4M rows a table, ``train_batch`` B=65,536, fp32
-   AdamW, three donated steps: seconds, losses, peak memory, and whether
-   a second init and first step repeat the first bit for bit.
+   whether two identical steps repeat bit for bit (reported, with the
+   ops left without a deterministic CUDA implementation), and on the
+   first two shapes the loss and gradients against the port on the CPU
+   (rtol 1e-4).  ``dlrm.train``: dlrm-mlperf at its widths with 4M rows a
+   table, ``train_batch`` B=65,536, fp32 AdamW, three donated steps:
+   seconds, losses, peak memory; a second init and first step must repeat
+   the first bit for bit in every leaf; the row-sharded lookup over 4
+   slots of the card at those tables must equal the whole tables' lookup
+   bit for bit, forward and gradient.  The lm, gnn and dlrm.train paths
+   must launch ``segment_sum`` (every lookup's backward and every segment
+   sum) and none of the six search kernels.
    ``quickstart``: ``examples/quickstart_torch.py`` as a subprocess (5,000
    x 128, HNSW m=16, efc=128; routers none, crouting, finger at efs=96 on
    the fused engine): exit 0, its "CRouting skipped" line; its launches
    count with the main paths'.
+2d. ``cells`` — ``models/api.build_cell``'s ANNS cell at
+   ``serve_100m_gist``'s widths (dim 960, max degree 32, B 256, efs 128,
+   crouting, fused engine) with its rows cut to 200,000 on one slot (an
+   exact K-NN graph, k = 32, built on the card): a batch timed, its
+   fused kernels launched, equal to the torch engine.  Then the dry run's
+   one-H100 bound (``launch/dryrun.cell_terms``: ``step_time_lb_s``,
+   ``dominant``) beside the measured seconds, at the dims each ran, of
+   granite-8b prefill 2 x 4,096 and decode 2 x 4,128, granite-moe train
+   2 x 512, gin-tu ``ogb_products``, ``dlrm.train`` and the ANNS cell
+   (the measurements are the phases' above, not run again).
 3. ``hnsw``    — the main path with its hierarchy: make_dataset(30k x 128,
    64 clusters) -> AnnIndex.build(graph="hnsw", m=16, efc=64) -> search
    1024 queries in batches of 128 with every spec of ``SPECS`` and
@@ -199,7 +225,10 @@ Phases, each printing one JSON line:
    (``wrapper_device_ms``, ``wrapper_launches``), an empty kernel's time
    on the same grid (``empty_launch_ms``) and, for the row kernels, the
    kernel's time on the same inputs with every lane masked, which reads
-   no row (``no_rows_device_ms``).
+   no row (``no_rows_device_ms``).  ``segment_sum`` at the lookups' and
+   aggregations' shapes of the lm, gnn and dlrm.train paths, beside one
+   ``torch.index_add`` call (atomics) and the whole wrapper call
+   (``wrapper_ms``: sort, searchsorted, kernel).
 
 For phases 3, 4, 4c, 6 and the index of 7 each kernel engine must launch
 exactly the kernels its (engine, spec) runs (``expected_kernels``; every
@@ -621,6 +650,8 @@ def bit_equal(a, b):
     import torch
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return a.shape == b.shape and bool(torch.equal(a, b))
 
 
@@ -926,6 +957,85 @@ def check_l2_distance(dev):
                 flat = xs.reshape(-1)[2:2 + C * d].view(C, d)
                 one(q, flat, "l2", "base not 16-byte aligned")
     return rows
+
+
+# --- segment_sum: the fixed-order sum behind every lookup's gradient --------
+# the small tables' vocabularies of dlrm-mlperf (3 to 155 rows; padded to
+# /16 as DlrmConfig.table_rows pads them)
+SEG_VOCABS = (3, 155)
+SEG_BATCHES = (4096, 65536)
+SEG_DIMS = (1, 64, 128, 960)
+
+
+def segment_sum_cases():
+    """(what, N, S, id range) of the kernel check: one id repeated 65,536
+    times; 3- and 155-row tables at B = 4,096 and 65,536; empty segments
+    (ids on every third segment of 3,000, and a segment count past every
+    id)."""
+    cases = [("one id x 65536", 65536, 1, 1)]
+    cases += [(f"{v}-row table, B={b}", b, -(-v // 16) * 16, v)
+              for v in SEG_VOCABS for b in SEG_BATCHES]
+    cases += [("every third segment of 3000", 4096, 3000, 1000),
+              ("segments past every id", 4096, 20000, 500)]
+    return cases
+
+
+def check_segment_sum(dev):
+    """The kernel against its plain version on CPU copies, bit for bit, for
+    every case of ``segment_sum_cases`` at d in ``SEG_DIMS`` in fp32 and
+    bf16; two calls bit-equal; one counted launch a wrapper call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_sum as K
+    rng = np.random.default_rng(7)
+    rows = []
+    for what, N, S, span in segment_sum_cases():
+        ids = rng.integers(0, span, N)
+        if what.startswith("every third"):
+            ids = ids * 3
+        ids_c = torch.as_tensor(ids)
+        for d in SEG_DIMS:
+            base = torch.as_tensor(rng.standard_normal((N, d))
+                                   .astype(np.float32))
+            for dt in (torch.float32, torch.bfloat16):
+                data_c = base.to(dt)
+                want = ref.segment_sum_ref(data_c, ids_c, S)
+                data, ids_d = data_c.to(dev), ids_c.to(dev)
+                before = K.LAUNCHES["segment_sum"]
+                got = [K.segment_sum(data, ids_d, S) for _ in range(2)]
+                torch.cuda.synchronize()
+                launches = K.LAUNCHES["segment_sum"] - before
+                same = bit_equal(got[0].cpu(), want)
+                check(same and bit_equal(got[0], got[1]) and launches == 2,
+                      f"segment_sum {what} d={d} {dt}: plain-equal {same}, "
+                      f"repeat {bit_equal(got[0], got[1])}, {launches} "
+                      "launches for 2 calls")
+                rows.append({"case": what, "N": N, "S": S, "d": d,
+                             "dtype": str(dt).removeprefix("torch."),
+                             "bit_equal": True, "repeat_bit_equal": True,
+                             "launches_a_call": launches / 2})
+    return {"cases": len(rows), "all_bit_equal": True,
+            "rows": rows[:: len(SEG_DIMS) * 2]}
+
+
+def nondeterministic_ops(fn):
+    """Run ``fn`` once under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)``: the distinct warnings it raised (each names an op
+    with no deterministic CUDA implementation), and the mode set back."""
+    import warnings
+    import torch
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(was)
+    return sorted({str(w.message).splitlines()[0][:200] for w in caught
+                   if "determinis" in str(w.message)})
 
 
 # --- phases 3, 4 and 6: the main path on every engine -----------------------
@@ -2761,21 +2871,89 @@ def lm_launch(dev):
             "secs": time.perf_counter() - t_phase}
 
 
+LM_REPEAT = dict(batch=2, seq=4096, token=7)    # every other token is 7
+
+
+def lm_repeat(dev):
+    """``lm.repeat``: a granite-moe-1b-a400m smoke step (fp32; the full
+    config's attention blocks and loss chunk, for speed) on a batch in
+    which one token fills every other position (4,096 lookups of one
+    embedding row), its loss and gradients taken twice: the embedding
+    gradient must repeat bit for bit (``lookup.embedding``'s fixed-order
+    backward, the ``segment_sum`` kernel); the other leaves are reported.
+    Then the same step once under ``torch.use_deterministic_algorithms(
+    True, warn_only=True)``: the ops that have no deterministic CUDA
+    implementation on this path."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import segment_sum as K
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_flatten_with_path, value_and_grad
+    t_phase = time.perf_counter()
+    full = get_arch("granite-moe-1b-a400m").model_cfg
+    cfg = dataclasses.replace(get_arch("granite-moe-1b-a400m").smoke_cfg,
+                              block_q=full.block_q, block_k=full.block_k,
+                              loss_chunk=full.loss_chunk)
+    B, S, tok = LM_REPEAT["batch"], LM_REPEAT["seq"], LM_REPEAT["token"]
+    rng = np.random.default_rng(5)
+    tokens = rng.integers(0, cfg.vocab, (B, S + 1))
+    tokens[:, ::2] = tok
+    batch = {"tokens": torch.as_tensor(tokens[:, :-1], device=dev),
+             "labels": torch.as_tensor(tokens[:, 1:], device=dev)}
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           dev)
+    before = K.LAUNCHES["segment_sum"]
+    runs = [value_and_grad(T.loss_fn, params, batch, cfg) for _ in range(2)]
+    torch.cuda.synchronize()
+    (l1, g1), (l2, g2) = runs
+    leaves = [(p, bit_equal(a, b)) for (p, a), (_, b) in zip(
+        tree_flatten_with_path(g1), tree_flatten_with_path(g2))]
+    embed_equal = bit_equal(g1["embed"], g2["embed"])
+    check(embed_equal, "lm.repeat: the embedding gradient of a batch "
+          f"repeating token {tok} {int((tokens[:, :-1] == tok).sum())} times "
+          "differs between two identical steps")
+    nondet = nondeterministic_ops(
+        lambda: value_and_grad(T.loss_fn, params, batch, cfg))
+    return {"phase": "lm.repeat", "arch": cfg.name, "batch": B, "seq": S,
+            "blocks": [cfg.block_q, cfg.block_k],
+            "token_repeats": int((tokens[:, :-1] == tok).sum()),
+            "embed_grad_bit_equal": embed_equal,
+            "loss_bit_equal": bit_equal(l1, l2),
+            "leaves_differing": [p for p, same in leaves if not same],
+            "segment_sum_launches": K.LAUNCHES["segment_sum"] - before,
+            "nondeterministic_ops": nondet,
+            "secs": time.perf_counter() - t_phase}
+
+
 def lm_phase(dev):
-    """The LM family (phase 2b): ``lm.check``, ``lm.serve``, ``lm.train``,
-    ``lm.launch``.  Its path reaches none of the six kernels (the
-    reference's LM is plain JAX): the counts are reset before it and must
-    read 0 after."""
+    """The LM family (phase 2b): ``lm.check``, ``lm.repeat``,
+    ``lm.serve``, ``lm.train``, ``lm.launch``.  Its path reaches none of
+    the six search kernels (the reference's LM is plain JAX): their counts
+    are reset before it and must read 0 after; the token embedding's
+    backward must have launched ``segment_sum``.  Returns the rows by
+    phase and ``segment_sum``'s launches."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as K
     t0 = time.perf_counter()
     ops.reset_launch_counts()
-    for part in (lm_check, lm_serve, lm_train, lm_launch):
-        emit(part(dev))
+    K.reset_launch_counts()
+    rows = {}
+    for part in (lm_check, lm_repeat, lm_serve, lm_train, lm_launch):
+        row = part(dev)
+        rows[row["phase"]] = row
+        emit(row)
     launches = dict(ops.LAUNCHES)
+    seg = K.LAUNCHES["segment_sum"]
     check(not any(launches.values()),
           f"lm: the LM path launched a search kernel: {launches}")
+    check(seg > 0, "lm: the token embedding's backward never launched "
+          "segment_sum")
     emit({"phase": "lm", "port_kernel_launches": launches,
+          "segment_sum_launches": seg,
           "secs": time.perf_counter() - t0})
+    return rows, seg
 
 
 # --- phase 2c: the GNN family, DLRM training, the quickstart -----------------
@@ -2853,8 +3031,9 @@ def gnn_cell(arch, shape_id, dev, gen):
     """``GNN_STEPS`` train steps of one (arch, shape) on the card (AdamW,
     the reference cell's defaults), each on the same parameters and batch:
     the first step's seconds, the steady mean, the peak memory, and
-    whether steps 1 and 2 (identical inputs) repeat bit for bit (reported:
-    ``index_add`` adds with atomics).  On ``GNN_CPU_SHAPES`` the card's
+    whether steps 1 and 2 (identical inputs) repeat bit for bit (reported;
+    at ``full_graph_sm``, and wherever a cell does not repeat, the ops the
+    step runs that have no deterministic CUDA implementation).  On ``GNN_CPU_SHAPES`` the card's
     loss and gradients against the port on the CPU on the same weights and
     batch: the loss within rtol 1e-4, each gradient leaf within 1e-4 in
     relative Frobenius norm (as tests/test_torch_lm.py holds gradient
@@ -2903,10 +3082,13 @@ def gnn_cell(arch, shape_id, dev, gen):
            "first_step_s": secs[0],
            "steady_step_s": sum(secs[1:]) / len(secs[1:]),
            "max_memory_allocated": peak, "loss": loss, "grad_norm": gnorm,
-           "repeat_bit_equal": bool(torch.equal(m1["loss"], m2["loss"]) and all(
-               torch.equal(a, b) for a, b in zip(
+           "repeat_bit_equal": bit_equal(m1["loss"], m2["loss"]) and all(
+               bit_equal(a, b) for a, b in zip(
                    tree_leaves((p1, s1.mu, s1.nu)),
-                   tree_leaves((p2, s2.mu, s2.nu)))))}
+                   tree_leaves((p2, s2.mu, s2.nu))))}
+    if shape_id == "full_graph_sm" or not row["repeat_bit_equal"]:
+        row["nondeterministic_ops"] = nondeterministic_ops(
+            lambda: step(params, state, batch))
     if shape_id in GNN_CPU_SHAPES:
         cpu_params = tree_map(lambda t: t.cpu(), params)
         cpu_batch = {k: v.cpu() for k, v in batch.items()}
@@ -2939,25 +3121,37 @@ def gnn_cell(arch, shape_id, dev, gen):
 
 def gnn_phase(dev):
     """The GNN family (phase 2c): every arch at ``GNN_RUN_SHAPES``, then
-    ``GNN_LARGE``; one line an (arch, shape).  Its path reaches none of
-    the six kernels (the reference's GNN is plain JAX): the counts are
-    reset before it and must read 0 after."""
+    ``GNN_LARGE``; one line an (arch, shape), with whether two identical
+    steps repeat bit for bit.  Its path reaches none of the six search
+    kernels (the reference's GNN is plain JAX): their counts are reset
+    before it and must read 0 after, and its gathers' backwards and
+    segment sums must have launched ``segment_sum``.  Returns the rows by
+    (arch, shape) and ``segment_sum``'s launches."""
     import torch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as K
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(4)
     ops.reset_launch_counts()
+    K.reset_launch_counts()
     cells = [(a, s) for a in GNN_ARCHS for s in GNN_RUN_SHAPES] + \
         list(GNN_LARGE)
+    rows = {}
     for arch, shape_id in cells:
-        emit(gnn_cell(arch, shape_id, dev, gen))
+        rows[(arch, shape_id)] = row = gnn_cell(arch, shape_id, dev, gen)
+        emit(row)
         torch.cuda.empty_cache()
     launches = dict(ops.LAUNCHES)
+    seg = K.LAUNCHES["segment_sum"]
     check(not any(launches.values()),
           f"gnn: the GNN path launched a search kernel: {launches}")
+    check(seg > 0, "gnn: no segment sum or gather went through segment_sum")
     emit({"phase": "gnn", "cells": len(cells),
-          "port_kernel_launches": launches,
+          "repeat_bit_equal": {f"{a}/{s}": r["repeat_bit_equal"]
+                               for (a, s), r in rows.items()},
+          "port_kernel_launches": launches, "segment_sum_launches": seg,
           "secs": time.perf_counter() - t0})
+    return rows, seg
 
 
 def bits_checksum(t):
@@ -2978,14 +3172,18 @@ def dlrm_train(dev):
     table (12.3 GB of tables), ``train_batch`` B=65,536, fp32 AdamW with
     its moments, ``DLRM_TRAIN_STEPS`` donated steps (parameters and moments
     updated in place); the step seconds, losses and peak memory.  Then the
-    same init and first step again: whether the loss, parameters and
-    moments repeat bit for bit, and which leaves differ (reported, by
-    ``bits_checksum``)."""
+    same init and first step again: the loss, parameters and moments must
+    repeat bit for bit (``bits_checksum`` of every leaf; the lookups'
+    backward is the ``segment_sum`` kernel), and the step once more under
+    deterministic-algorithms mode (the ops left without a deterministic
+    CUDA implementation).  The six search kernels' counts must read 0,
+    ``segment_sum``'s must not.  Last, ``dlrm_row_sharded``."""
     import dataclasses
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.data.synthetic import dlrm_batch
     from repro_torch.kernels import ops
+    from repro_torch.kernels import segment_sum as K
     from repro_torch.models import dlrm as M
     from repro_torch.train import optimizer as opt
     from repro_torch.tree import tree_flatten_with_path
@@ -3010,6 +3208,7 @@ def dlrm_train(dev):
                 {"params": params, "mu": state.mu, "nu": state.nu})}}
 
     ops.reset_launch_counts()
+    K.reset_launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3032,13 +3231,21 @@ def dlrm_train(dev):
     params, state = fresh()
     params, state, m = step(params, state, batch)
     again = fingerprint(m["loss"], params, state)
+    nondet = nondeterministic_ops(lambda: step(params, state, batch))
     del params, state, m
     torch.cuda.empty_cache()
     launches = dict(ops.LAUNCHES)
+    seg = K.LAUNCHES["segment_sum"]
     check(all(math.isfinite(x) for x in losses + [gnorm]),
           f"dlrm.train: losses {losses}, grad norm {gnorm}")
     check(not any(launches.values()),
           f"dlrm.train: the DLRM path launched a search kernel: {launches}")
+    check(seg > 0, "dlrm.train: the lookups' backward never launched "
+          "segment_sum")
+    differs = [k for k in first if first[k] != again[k]]
+    check(not differs, f"dlrm.train: a second init and first step differ "
+          f"from the first in {differs}")
+    sharded = dlrm_row_sharded(dev, cfg, batch["sparse_ids"])
     return {"phase": "dlrm.train", "batch": B,
             "table_rows": sum(cfg.table_rows()),
             "table_gb": sum(cfg.table_rows()) * cfg.embed_dim * 4 / 1e9,
@@ -3046,12 +3253,59 @@ def dlrm_train(dev):
             "step_secs": secs, "losses": losses, "grad_norm": gnorm,
             "max_memory_allocated": peak,
             "repeat_bit_equal": first == again,
-            "repeat_differs_in": [k for k in first if first[k] != again[k]],
-            "port_kernel_launches": launches,
+            "repeat_differs_in": differs,
+            "nondeterministic_ops": nondet,
+            "port_kernel_launches": launches, "segment_sum_launches": seg,
+            "row_sharded": sharded,
             "cuts": f"vocab_cap {VOCAB_CAP} a table (the full Criteo "
                     "vocabulary's 96 GB of tables do not fit one card, "
                     "before gradients and moments)",
             "secs": time.perf_counter() - t_phase}
+
+
+DLRM_SLOTS = 4
+
+
+def dlrm_row_sharded(dev, cfg, ids):
+    """The row-sharded lookup (``dlrm.shard_tables`` over ``DLRM_SLOTS``
+    slots of the one card, ``table_parallel_lookup``) at ``cfg``'s tables
+    (4M rows) against the lookup of the whole tables (one slot): the 26
+    embeddings [B, 128] and every table's gradient under one random
+    output gradient must be bit-equal."""
+    import torch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import dlrm as M
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tables = M.init_dlrm(cfg, gen, device=dev)["tables"]
+    g = [torch.randn((ids.shape[0], cfg.embed_dim), generator=gen,
+                     device=dev) for _ in tables]
+
+    def run(leaves):
+        out = M.table_parallel_lookup(leaves, ids)
+        torch.autograd.backward(out, g)
+        return [o.detach() for o in out]
+
+    whole = [t.requires_grad_() for t in tables]
+    want = run(whole)
+    placed = M.shard_tables([t.detach() for t in tables],
+                            make_local_mesh(DLRM_SLOTS, device=dev))
+    blocks = [tuple(b.detach().requires_grad_() for b in t) for t in placed]
+    check(all(isinstance(t, tuple) for t in placed),
+          "dlrm.row_sharded: every padded table should split into row "
+          "blocks")
+    got = run(blocks)
+    torch.cuda.synchronize()
+    fwd = all(bit_equal(a, b) for a, b in zip(got, want))
+    bwd = all(bit_equal(b.grad, w.grad[s * b.shape[0]:(s + 1) * b.shape[0]])
+              for t, w in zip(blocks, whole) for s, b in enumerate(t))
+    check(fwd and bwd, f"dlrm.row_sharded: forward bit-equal {fwd}, "
+          f"gradients bit-equal {bwd} at {DLRM_SLOTS} slots")
+    del tables, whole, placed, blocks, got, want, g
+    torch.cuda.empty_cache()
+    return {"slots": DLRM_SLOTS, "table_rows": sum(cfg.table_rows()),
+            "forward_bit_equal": fwd, "gradients_bit_equal": bwd,
+            "secs": time.perf_counter() - t0}
 
 
 def quickstart_phase(main_launches):
@@ -3368,7 +3622,9 @@ KERNEL_FILES = {
     "sq8_distance": "src/repro/kernels/sq8_distance.py:87",
     "gather_distance": "src/repro/kernels/gather_distance.py:53",
     "crouting_prune": "src/repro/kernels/crouting_prune.py:54",
-    "l2_distance": "src/repro/kernels/l2_distance.py:65"}
+    "l2_distance": "src/repro/kernels/l2_distance.py:65",
+    # no Pallas kernel: where the reference sums rows by id (XLA scatter-add)
+    "segment_sum": "src/repro/models/dlrm.py:104"}
 NO_LIBRARY_CALL = {
     "fused_expand": "no single PyTorch call: a row gather under a computed "
                     "prune mask, then a distance",
@@ -3719,7 +3975,8 @@ def timing_phase(captures, main_launches, cands, queries):
         # 512 MB of candidates exceed the L2; the 4 MB block is flushed
         "l2_distance": [time_l2_distance(queries[:1], cands),
                         time_l2_distance(queries, cands),
-                        time_l2_distance(queries[:8], cands[:8192], flush)]}
+                        time_l2_distance(queries[:8], cands[:8192], flush)],
+        "segment_sum": time_segment_sum()}
     emit({"phase": "timing", "kernels": rows,
           "l2_crossover": l2_crossover(cands, queries, flush),
           "event_floor": event_floor_ms()})
@@ -3733,6 +3990,241 @@ def timing_phase(captures, main_launches, cands, queries):
             for r in rs[1:]]
         table.append(row)
     return table
+
+
+# --- the cells phase: the dry run's bounds beside what the card measured -----
+ANNS_ROWS = 200_000      # serve_100m_gist's 100M rows cut to one slot's worth
+ANNS_PROFILE_QUERIES = 32
+
+
+def _cut_cell(arch_id, shape_id, cfg=None, **dims):
+    """``build_cell`` at one card on the named shape with ``dims``
+    replaced (the dims a phase ran at), and ``cfg`` for the model's."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import sharding as SH
+    from repro_torch.models.api import build_cell
+    spec = get_arch(arch_id)
+    shape = spec.shape(shape_id)
+    cut = dataclasses.replace(shape, dims={**shape.dims, **dims})
+    spec = dataclasses.replace(spec, shapes=(cut,),
+                               model_cfg=cfg or spec.model_cfg)
+    return build_cell(spec, shape_id, SH.mesh_shape("single"))
+
+
+def anns_cell(dev, main_launches):
+    """The ANNS cell through ``build_cell`` at ``serve_100m_gist``'s widths
+    (dim 960, max degree 32, B 256, efs 128, crouting, the fused engine),
+    its rows cut to ``ANNS_ROWS`` on one slot: an exact K-NN graph (k =
+    32, ``core/knn_graph.py``) built on the card, stacked by
+    ``stack_shards`` into the cell's thirteen arguments (each held to the
+    cell's meta shape and dtype), one warm batch and three timed ones.
+    The fused kernels must launch, and the plain (``torch``) engine on the
+    same arguments must return the same ids (>= 99% of queries) and the
+    same counters; recall@10 against exact ground truth is printed (one
+    Gaussian cloud, as knn_1m draws it).  Returns (row, the cell, the median batch
+    seconds)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.core.angles import sample_angle_profile
+    from repro_torch.core.knn_graph import build_knn_graph
+    from repro_torch.core.sharded_index import stack_shards
+    from repro_torch.core.spec import SearchSpec
+    from repro_torch.models.api import make_anns_serve
+    from repro_torch.data.vectors import (exact_ground_truth, make_dataset,
+                                          recall_at_k)
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    cell = _cut_cell("crouting-anns", "serve_100m_gist", n_total=ANNS_ROWS)
+    (vec_spec, *_), B = cell.arg_specs, cell.arg_specs[10].shape[0]
+    dim = vec_spec.shape[2]
+    t0 = time.perf_counter()
+    ds = make_dataset(n_base=ANNS_ROWS, n_query=B, dim=dim, n_clusters=1,
+                      seed=0)
+    data_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = build_knn_graph(ds.base, k=cell.arg_specs[1].shape[2], device=dev)
+    knn_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prof = sample_angle_profile(g, n_sample=ANNS_PROFILE_QUERIES, seed=0)
+    prof_secs = time.perf_counter() - t0
+    arr = stack_shards([g], [prof])
+
+    def t(a, dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(dtype)
+
+    args = [t(arr.vectors, torch.float32), t(arr.neighbors, torch.int32),
+            t(arr.edge_eu, torch.float32), t(arr.norms, torch.float32),
+            t(arr.entries, torch.int32), t(arr.offsets, torch.int32),
+            t(arr.sq8_codes, torch.uint8), t(arr.sq8_lo, torch.float32),
+            t(arr.sq8_scale, torch.float32), t(arr.sq8_eps, torch.float32),
+            t(ds.queries, torch.float32),
+            torch.tensor(arr.cos_theta, dtype=torch.float32, device=dev),
+            torch.ones(B, dtype=torch.bool, device=dev)]
+    for i, (a, want) in enumerate(zip(args, cell.arg_specs)):
+        check(a.shape == want.shape and a.dtype == want.dtype,
+              f"cells/anns: argument {i} is {a.dtype} {tuple(a.shape)}, "
+              f"the cell's is {want.dtype} {tuple(want.shape)}")
+    ops.reset_launch_counts()
+    out = cell.step_fn(*args)
+    torch.cuda.synchronize()
+    secs = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = cell.step_fn(*args)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    check(launches["fused_expand"] > 0 and launches["pool_merge"] > 0,
+          f"cells/anns: the fused engine's kernels did not launch: {launches}")
+    for k, v in launches.items():
+        main_launches[k] = main_launches.get(k, 0) + v
+    dists, ids, counters = out
+    # the plain engine on the same arguments: the same pool and counters
+    plain = make_anns_serve(dataclasses.replace(
+        SearchSpec(efs=128, k=10, router="crouting", metric="l2",
+                   max_hops=256, use_hierarchy=False),
+        engine="torch").canonical(), ANNS_ROWS)(*args)
+    same_ids = float((ids == plain[1]).all(1).float().mean())
+    check(bool(torch.isfinite(dists[:, :10]).all()) and same_ids >= 0.99
+          and counters == plain[2],
+          f"cells/anns: fused against torch: {same_ids} of queries with "
+          f"equal ids, counters {counters} against {plain[2]}")
+    gt = exact_ground_truth(ds, k=10, device=dev)
+    recall = recall_at_k(ids[:, :10].cpu().numpy(), gt, 10)
+    row = {"phase": "cells.anns", "rows": ANNS_ROWS, "dim": dim,
+           "batch": B, "efs": 128, "max_degree": g.max_degree,
+           "data_secs": data_secs, "knn_build_secs": knn_secs,
+           "profile_secs": prof_secs, "theta_star": prof.theta_star,
+           "batch_secs": secs, "recall_at_10": recall,
+           "ids_equal_to_torch_engine": same_ids,
+           "counters_per_query": {
+               n: c / B for n, c in zip(
+                   ("dist_calls", "est_calls", "rerank_calls", "sq8_calls",
+                    "hops"), counters[:5])},
+           "iters": counters[5], "launches": launches,
+           "vector_gb": ANNS_ROWS * dim * 4 / 1e9,
+           "cuts": "serve_100m_gist's 100M rows over the mesh -> 200,000 "
+                   "rows, one slot (768 MB of vectors plus the SQ8 codes); "
+                   f"exact K-NN graph instead of HNSW; angle profile from "
+                   f"{ANNS_PROFILE_QUERIES} sampled searches",
+           "secs": time.perf_counter() - t_phase}
+    return row, cell, statistics.median(secs)
+
+
+def cells_phase(dev, lm_rows, gnn_rows, dlrm_row, main_launches):
+    """The dry run's one-H100 bound (``launch/dryrun.cell_terms``:
+    ``step_time_lb_s``, ``dominant``) of each step a phase measured, at the
+    dims it ran, beside its measured seconds (taken from those phases, not
+    run again): granite-8b prefill 2 x 4,096 and decode 2 x 4,128,
+    granite-moe-1b-a400m train 2 x 512, gin-tu ``ogb_products``,
+    ``dlrm.train`` at ``VOCAB_CAP`` rows a table, and the ANNS cell
+    (``anns_cell``, run here)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.dryrun import cell_terms
+    t_phase = time.perf_counter()
+    anns_row, anns, anns_secs = anns_cell(dev, main_launches)
+    emit(anns_row)
+    serve, train = lm_rows["lm.serve"], lm_rows["lm.train"]
+    dlrm_cfg = dataclasses.replace(get_arch("dlrm-mlperf").model_cfg,
+                                   vocab_cap=VOCAB_CAP)
+    steps = [
+        ("granite-8b prefill 2 x 4096",
+         _cut_cell("granite-8b", "prefill_32k", seq_len=serve["prompt"],
+                   global_batch=serve["batch"]), serve["prefill_secs"]),
+        ("granite-8b decode 2 x 4128",
+         _cut_cell("granite-8b", "decode_32k", seq_len=serve["cache_slots"],
+                   global_batch=serve["batch"]),
+         serve["decode_ms_per_token_median"] / 1e3),
+        ("granite-moe-1b-a400m train 2 x 512",
+         _cut_cell("granite-moe-1b-a400m", "train_4k", seq_len=train["seq"],
+                   global_batch=train["batch"]),
+         statistics.median(train["step_secs"][1:])),
+        ("gin-tu ogb_products",
+         _cut_cell("gin-tu", "ogb_products"),
+         gnn_rows[("gin-tu", "ogb_products")]["steady_step_s"]),
+        (f"dlrm-mlperf train_batch, {VOCAB_CAP} rows a table",
+         _cut_cell("dlrm-mlperf", "train_batch", cfg=dlrm_cfg),
+         statistics.median(dlrm_row["step_secs"][1:])),
+        (f"crouting-anns serve_100m_gist, {ANNS_ROWS} rows", anns,
+         anns_secs)]
+    rows = []
+    for what, cell, measured in steps:
+        terms = cell_terms(cell)
+        rows.append({
+            "cell": what, "step": cell.step_name,
+            "step_time_lb_s": terms["step_time_lb_s"],
+            "dominant": terms["dominant"], "compute_s": terms["compute_s"],
+            "memory_s": terms["memory_s"],
+            "flops_by_dtype": terms["flops_by_dtype"],
+            "bytes_min": terms["bytes_min_per_dev"],
+            "bytes_eager": terms["bytes_eager_per_dev"],
+            "loop_correction": terms["loop_correction"],
+            "measured_s": measured,
+            "measured_over_bound": measured / terms["step_time_lb_s"]})
+    emit({"phase": "cells", "hw": "H100_SXM (989.4 TFLOP/s bf16, 66.9 "
+          "fp32, 3.35 TB/s)", "steps": rows,
+          "secs": time.perf_counter() - t_phase})
+    return rows
+
+
+def time_segment_sum():
+    """``segment_sum`` at the main path's shapes (the lookups' backward of
+    ``dlrm.train``: a 3-row table's and a 4M-row table's [65,536, 128]
+    gradient rows; ``lm.train``'s token embedding, [1,024, 1,024] bf16 rows
+    into granite-moe's 49,280-row vocabulary; gin-tu's aggregation at
+    ``minibatch_lg``): the kernel alone on runs set up beforehand, the
+    whole wrapper call (sort, searchsorted, kernel), the plain version on
+    the card, and ``torch.index_add`` (atomics: one PyTorch call that
+    computes the same sum in no fixed order).  Inputs are fresh in L2, as
+    a backward that just wrote them leaves them.  The bound counts the
+    rows and ids read and the output written once."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import segment_sum as K
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out = []
+    for what, N, S, span, d, dt in (
+            ("dlrm small-table backward (3-row vocab)", 65536, 16, 3, 128,
+             torch.float32),
+            ("dlrm 4M-row table backward", 65536, 4_000_256, 4_000_000, 128,
+             torch.float32),
+            ("lm.train token embedding backward", 1024, 49280, 49155, 1024,
+             torch.bfloat16),
+            ("gin-tu minibatch_lg aggregation", 168960, 169984, 169984, 64,
+             torch.float32)):
+        data = torch.randn((N, d), generator=gen, device=dev).to(dt)
+        ids = torch.randint(0, span, (N,), generator=gen, device=dev)
+        sorted_ids, order, offsets = K.runs(ids, S)
+        zeros = torch.zeros((S, d), dtype=dt, device=dev)
+        got = K.launch_runs(data, sorted_ids, order, offsets, S).cpu()
+        want = ref.segment_sum_ref(data.cpu(), ids.cpu(), S)
+        check(bit_equal(got, want), f"segment_sum timing inputs {what}: the "
+              "kernel differs from its plain version")
+        e = data.element_size()
+        row = timed_row(
+            "segment_sum",
+            lambda: K.launch_runs(data, sorted_ids, order, offsets, S),
+            lambda: ref.segment_sum_ref(data, ids, S),
+            N * d * e + 8 * N + S * d * e, N * d,
+            float((got.float() - want.float()).abs().max()) if N else 0.0,
+            f"{what}: [{N}, {d}] {str(dt).removeprefix('torch.')} -> "
+            f"{S} segments", library=lambda: torch.index_add(zeros, 0, ids,
+                                                             data),
+            library_note="torch.index_add (CUDA atomics, no fixed order; "
+                         "the port never calls it)")
+        row["wrapper_ms"] = cuda_times(lambda: K.segment_sum(data, ids, S),
+                                       50)
+        row["replaces_note"] = ("no Pallas kernel: the reference sums rows "
+                                "by id with XLA's scatter-add "
+                                "(jax.ops.segment_sum, jnp.take's backward)")
+        out.append(row)
+        del data, ids, sorted_ids, order, offsets, zeros
+        torch.cuda.empty_cache()
+    return out
 
 
 def profile_batch(idx, queries, spec):
@@ -3839,14 +4331,20 @@ def main() -> int:
           "sq8_distance": check_sq8_distance(rng, dev),
           "gather_distance": check_gather_distance(rng, dev),
           "crouting_prune": check_crouting_prune(rng, dev),
-          "l2_distance": check_l2_distance(dev)})
+          "l2_distance": check_l2_distance(dev),
+          "segment_sum": check_segment_sum(dev)})
     # 2b. the LM family: granite-8b serving, granite-moe training, launcher
-    lm_phase(dev)
+    lm_rows, lm_seg = lm_phase(dev)
     # 2c. the GNN family, DLRM training, the quickstart example
-    gnn_phase(dev)
-    emit(dlrm_train(dev))
-    main_launches = {}
+    gnn_rows, gnn_seg = gnn_phase(dev)
+    dlrm_row = dlrm_train(dev)
+    emit(dlrm_row)
+    main_launches = {"segment_sum": lm_seg + gnn_seg
+                     + dlrm_row["segment_sum_launches"]}
     quickstart_phase(main_launches)
+    # 2d. the cells: the ANNS cell at GIST's width, and the dry run's
+    # bounds beside the steps measured above
+    cells_phase(dev, lm_rows, gnn_rows, dlrm_row, main_launches)
     # 3. hnsw: the main path with its hierarchy, at a reduced n
     t0 = time.perf_counter()
     ds = make_dataset(n_base=HNSW_BASE, n_query=1024, dim=128, n_clusters=64,

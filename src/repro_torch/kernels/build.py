@@ -34,7 +34,8 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 KERNEL_SOURCES = ("fused_expand", "pool_merge", "sq8_distance",
-                  "gather_distance", "crouting_prune", "l2_distance")
+                  "gather_distance", "crouting_prune", "l2_distance",
+                  "segment_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

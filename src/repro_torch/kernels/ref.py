@@ -16,6 +16,8 @@ kernels' outputs reproducible bit for bit in plain PyTorch:
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 # The CUDA kernels read a row in chunks of 4 elements, 128 elements per warp
@@ -175,3 +177,19 @@ def gather_distance_ref(indices, queries, table, skip=None):
 def gather_distance_pruned_ref(nbr_ids, prune_mask, queries, table):
     """The exact path under a prune mask: pruned lanes report +inf."""
     return gather_distance_ref(nbr_ids, queries, table, skip=prune_mask)
+
+
+def segment_sum_ref(data, seg_ids, num_segments: int):
+    """``out[s] = sum of data[i] over seg_ids[i] == s`` for ``data [N,
+    *tail]``, as ``index_add_`` into zeros adds on the CPU: in increasing
+    ``i``, starting from +0; an empty segment is 0.  fp32 data is summed
+    in fp32; bf16 data in an fp32 accumulator, rounded to bf16 once at the
+    end (the CPU's ``index_add_`` of a 2-D bf16 tensor gives the same
+    bits).  ``csrc/segment_sum.cu`` equals this bit for bit."""
+    tail = tuple(data.shape[1:])
+    rows = data.reshape(data.shape[0], math.prod(tail))
+    acc = torch.float32 if data.dtype == torch.bfloat16 else data.dtype
+    out = torch.zeros((num_segments, rows.shape[1]), dtype=acc,
+                      device=data.device)
+    out.index_add_(0, seg_ids.reshape(-1).long(), rows.to(acc))
+    return out.to(data.dtype).reshape((num_segments,) + tail)

@@ -2,18 +2,22 @@
 inference (forward, serve, retrieval) and training in PyTorch.
 
 The counterpart of ``repro.models.dlrm``.  The JAX lookups become
-``F.embedding`` (single-hot; its backward repeats bit for bit on the CPU,
-but on the GPU not for a row looked up thousands of times in a batch, as
-the small tables' rows are) and ``index_select`` + ``index_add_``
-(multi-hot bags); no hand-written kernel stands behind them, as no Pallas
-kernel stood behind the JAX ones.  Parameters keep the JAX package's
+``lookup.embedding`` (single-hot) and ``lookup.embedding`` +
+``lookup.segment_sum`` (multi-hot bags): each backward, and the bag sum,
+adds a row's duplicates in a fixed order (the ``segment_sum`` kernel on
+the card), so a training step repeats bit for bit on the GPU too, where
+``F.embedding``'s backward did not for the small tables' rows, each
+looked up thousands of times a batch.  Parameters keep the JAX package's
 layout so that the two can be compared: ``{"tables": [[rows, dim]],
 "bot": [{"w": [in, out], "b": [out]}], "top": [...]}`` with ``x @ w +
 b``.  ``dlrm_loss`` / ``make_dlrm_train_step`` train it with the port's
 AdamW.
 
-Not ported yet: the table-parallel ``shard_map`` lookup (the sharding
-slice, with the cells and the dry run).
+Tables row-shard over the slots of a ``LocalMesh`` with ``shard_tables``
+(the counterpart of the reference's ``shard_map`` lookup):
+``table_parallel_lookup`` then gathers on each slot the rows it owns and
+sums the partials in slot order, with the same bits as the lookup of the
+whole tables.
 """
 from __future__ import annotations
 
@@ -23,9 +27,10 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.mesh import LocalMesh
+from repro_torch.models import lookup
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import value_and_grad
 
@@ -122,26 +127,81 @@ def _mlp(params, x):
 
 def embedding_bag(table, ids, bag_ids, n_bags: int, combiner: str = "sum"):
     """Multi-hot lookup: ids [L] rows of table, bag_ids [L] -> [n_bags, dim]
-    (``sum``, or ``mean`` over each bag's rows; empty bags are zero)."""
+    (``sum``, or ``mean`` over each bag's rows; empty bags are zero), each
+    bag's rows added in increasing position."""
     if combiner not in ("sum", "mean"):
         raise ValueError(f"unknown combiner {combiner!r}; use sum or mean")
     bag_ids = bag_ids.long()
-    rows = table.index_select(0, ids.long())
-    out = torch.zeros((n_bags, table.shape[1]), dtype=rows.dtype,
-                      device=rows.device).index_add_(0, bag_ids, rows)
+    rows = lookup.embedding(ids.long(), table)
+    out = lookup.segment_sum(rows, bag_ids, n_bags)
     if combiner == "mean":
-        cnt = torch.zeros((n_bags,), dtype=torch.float32,
-                          device=rows.device).index_add_(
-            0, bag_ids, torch.ones_like(bag_ids, dtype=torch.float32))
+        cnt = lookup.segment_sum(torch.ones_like(bag_ids, dtype=torch.float32),
+                                 bag_ids, n_bags)
         out = out / torch.clamp_min(cnt, 1.0)[:, None]
     return out
 
 
+def shard_tables(tables, mesh: LocalMesh):
+    """The tables row-sharded over ``mesh``'s S slots, as the reference's
+    ``dlrm_param_sharding`` places them: a table whose rows divide S (and
+    number at least S) becomes a tuple of S row blocks, block s on slot
+    s's device (a view of the table where that is its device); any other
+    table stays whole on the first slot's device."""
+    devs = mesh.devices
+    S = len(devs)
+    out = []
+    for t in tables:
+        if t.shape[0] % S == 0 and t.shape[0] >= S:
+            out.append(tuple(b.to(d) for b, d in zip(t.chunk(S), devs)))
+        else:
+            out.append(t.to(devs[0]))
+    return out
+
+
+def _row_sharded(tables, ids):
+    """The counterpart of the reference's ``shard_map`` branch: each slot
+    gathers, for every row-sharded table, the rows it owns (a clamped id
+    and a 0/1 mask for the rest), and the [n_sharded, B, d] partials are
+    summed in slot order on the first slot's device: no atomics, one
+    batch-sized sum.  Exactly one slot holds each row, and x + 0 = x, so
+    the result and its gradient (``lookup.embedding``'s fixed-order
+    backward) have the bits of the unsharded lookup."""
+    big = [i for i, t in enumerate(tables) if isinstance(t, (tuple, list))]
+    n_slots = len(tables[big[0]])
+    if any(len(tables[i]) != n_slots for i in big):
+        raise ValueError("row-sharded tables must share one slot count")
+    home = tables[big[0]][0].device
+    summed = None
+    for s in range(n_slots):
+        ids_s = ids.to(tables[big[0]][s].device).long()
+        parts = []
+        for i in big:
+            blk = tables[i][s]
+            rows = blk.shape[0]
+            idx = ids_s[:, i] - s * rows
+            ok = (idx >= 0) & (idx < rows)
+            parts.append(lookup.embedding(idx.clamp(0, rows - 1), blk)
+                         * ok[:, None].to(blk.dtype))
+        part = torch.stack(parts).to(home)
+        summed = part if summed is None else summed + part
+    out, j = [], 0
+    for i, t in enumerate(tables):
+        if i in big:
+            out.append(summed[j])
+            j += 1
+        else:
+            out.append(lookup.embedding(ids[:, i].to(t.device), t).to(home))
+    return out
+
+
 def table_parallel_lookup(tables, ids):
-    """Single-hot lookup of ids [B, n_sparse] in each table, on one device
-    (the JAX function's no-mesh branch; its row-sharded form waits for the
-    sharding slice)."""
-    return [F.embedding(ids[:, i], t) for i, t in enumerate(tables)]
+    """Single-hot lookup of ids [B, n_sparse] in each table: of whole
+    tables on one device (the JAX function's no-mesh branch), or, where
+    ``shard_tables`` split some into row blocks, the row-sharded lookup
+    (``_row_sharded``)."""
+    if any(isinstance(t, (tuple, list)) for t in tables):
+        return _row_sharded(tables, ids)
+    return [lookup.embedding(ids[:, i], t) for i, t in enumerate(tables)]
 
 
 def dot_interaction(vectors):

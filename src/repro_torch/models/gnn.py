@@ -1,16 +1,15 @@
 """GNN family: message passing over an edge list, in PyTorch.
 
 The counterpart of ``repro.models.gnn``.  Adjacency is an edge list (src
-[E], dst [E]); a node's row is gathered per edge with ``F.embedding``
-and messages are aggregated over the dst index: JAX's ``segment_sum``
-becomes ``index_add`` (``segment_sum``, which keeps only the ids for its
-backward) and its
-``segment_max`` ``scatter_reduce(..., "amax", include_self=False)`` from
-``-inf`` (so an empty segment reads ``-inf`` as in JAX).  No hand-written
-kernel stands behind them, as no Pallas kernel stood behind the JAX ones.
-On the GPU ``index_add`` adds with atomics (and ``F.embedding``'s backward
-does not fix the order of a row's many duplicates either), so two
-identical steps there may differ by rounding.  Covers the four archs:
+[E], dst [E]); a node's row is gathered per edge and messages are
+aggregated over the dst index through ``models/lookup.py``: JAX's row
+takes become ``lookup.embedding`` and its ``segment_sum`` becomes
+``lookup.segment_sum``, both of which sum rows by id in a fixed order
+(the ``segment_sum`` kernel on the card), so two identical steps repeat
+bit for bit there as on the CPU.
+JAX's ``segment_max`` becomes ``scatter_reduce(..., "amax",
+include_self=False)`` from ``-inf`` (so an empty segment reads ``-inf`` as
+in JAX).  Covers the four archs:
 
   gin-tu   5L d=64 sum-agg, learnable eps (GIN, arXiv:1810.00826)
   gat-cora 2L d_hidden=8, 8 heads, edge-softmax attention (arXiv:1710.10903)
@@ -36,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import lookup
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import (numpy_to_tensor, tensor_to_numpy, tree_map,
                               value_and_grad)
@@ -60,35 +60,6 @@ class GnnConfig:
 # --------------------------------------------------------------------------
 # gathers and segment ops
 # --------------------------------------------------------------------------
-def gather_rows(x, idx):
-    """x[idx] along the first axis, through ``F.embedding`` (any trailing
-    shape)."""
-    rows = F.embedding(idx, x.reshape(x.shape[0], -1))
-    return rows.reshape(idx.shape + x.shape[1:])
-
-
-class _SegmentSum(torch.autograd.Function):
-    """``index_add`` into zeros, whose backward gathers the gradient rows
-    back.  It saves only the segment ids: autograd's own ``index_add``
-    also keeps ``data`` for its backward, an [E, d] tensor a layer (15.8 GB
-    a layer for gin-tu at ogb_products)."""
-
-    @staticmethod
-    def forward(ctx, data, seg_ids, num_segments):
-        ctx.save_for_backward(seg_ids)
-        return data.new_zeros((num_segments,) + data.shape[1:]).index_add_(
-            0, seg_ids, data)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (seg_ids,) = ctx.saved_tensors
-        return grad.index_select(0, seg_ids), None, None
-
-
-def segment_sum(data, seg_ids, num_segments: int):
-    return _SegmentSum.apply(data, seg_ids, num_segments)
-
-
 def segment_max(data, seg_ids, num_segments: int):
     """Per-segment max of 1-D ``data``; ``-inf`` where a segment is empty."""
     return data.new_full((num_segments,), -math.inf).scatter_reduce(
@@ -102,9 +73,9 @@ def segment_softmax(scores, seg_ids, num_segments: int):
     seg_ids = seg_ids.long()
     smax = segment_max(scores, seg_ids, num_segments)
     smax = torch.where(torch.isfinite(smax), smax, torch.zeros_like(smax))
-    ex = torch.exp(scores - gather_rows(smax, seg_ids))
-    den = segment_sum(ex, seg_ids, num_segments)
-    return ex / torch.clamp_min(gather_rows(den, seg_ids), 1e-12)
+    ex = torch.exp(scores - lookup.embedding(seg_ids, smax))
+    den = lookup.segment_sum(ex, seg_ids, num_segments)
+    return ex / torch.clamp_min(lookup.embedding(seg_ids, den), 1e-12)
 
 
 def _mlp_init(dims, dt, gen, dev):
@@ -207,11 +178,12 @@ def gnn_forward(params: Params, batch, cfg: GnnConfig):
     if cfg.arch == "gin":
         h = _mlp(params["embed"], batch["node_feat"], final_act=True)
         for i in range(cfg.n_layers):
-            agg = segment_sum(gather_rows(h, src) * emask, dst, n)
+            agg = lookup.segment_sum(lookup.embedding(src, h) * emask, dst,
+                                     n)
             h = _mlp(params["mlps"][i], (1.0 + params["eps"][i]) * h + agg)
             h = torch.relu(h)
         if cfg.task == "graph_class":
-            pooled = segment_sum(h * batch["node_mask"][:, None],
+            pooled = lookup.segment_sum(h * batch["node_mask"][:, None],
                                  batch["graph_ids"].long(), n_graphs)
             return _mlp(params["out"], pooled)
         return _mlp(params["out"], h)
@@ -223,30 +195,30 @@ def gnn_forward(params: Params, batch, cfg: GnnConfig):
             z = torch.einsum("nf,fhd->nhd", h, lp["w"])         # [N, H, D]
             el = torch.einsum("nhd,hd->nh", z, lp["a_l"])
             er = torch.einsum("nhd,hd->nh", z, lp["a_r"])
-            e = F.leaky_relu(gather_rows(el, src) + gather_rows(er, dst),
-                             0.2)                                # [E, H]
+            e = F.leaky_relu(lookup.embedding(src, el)
+                             + lookup.embedding(dst, er), 0.2)   # [E, H]
             e = torch.where(emask_pos, e, torch.full_like(e, -math.inf))
             # edge-softmax per (dst, head): fold head into segment id
             H = e.shape[1]
             seg = dst[:, None] * H + torch.arange(H, device=dst.device)
             alpha = segment_softmax(e.reshape(-1), seg.reshape(-1), n * H)
             alpha = alpha.reshape(-1, H) * batch["edge_mask"][:, None]
-            msg = alpha[..., None] * gather_rows(z, src)         # [E, H, D]
-            out = segment_sum(msg, dst, n)
+            msg = alpha[..., None] * lookup.embedding(src, z)   # [E, H, D]
+            out = lookup.segment_sum(msg, dst, n)
             last = li == len(params["layers"]) - 1
             h = out.mean(dim=1) if last else F.elu(out.reshape(n, -1))
         if cfg.task == "graph_class":
             gids = batch["graph_ids"].long()
-            cnt = segment_sum(batch["node_mask"], gids, n_graphs)
-            pooled = segment_sum(h * batch["node_mask"][:, None], gids,
+            cnt = lookup.segment_sum(batch["node_mask"], gids, n_graphs)
+            pooled = lookup.segment_sum(h * batch["node_mask"][:, None], gids,
                                  n_graphs)
             return pooled / torch.clamp_min(cnt, 1.0)[:, None]
         return h
 
     if cfg.arch == "schnet":
         pos = batch["pos"]
-        h = F.embedding(batch["atom_z"].long(), params["embed"])
-        dvec = gather_rows(pos, src) - gather_rows(pos, dst)
+        h = lookup.embedding(batch["atom_z"].long(), params["embed"])
+        dvec = lookup.embedding(src, pos) - lookup.embedding(dst, pos)
         dist = torch.sqrt(torch.clamp_min((dvec * dvec).sum(-1), 1e-12))
         rbf = _rbf_expand(dist, cfg.n_rbf, cfg.cutoff)
         # cosine cutoff envelope
@@ -255,26 +227,26 @@ def gnn_forward(params: Params, batch, cfg: GnnConfig):
         for ip in params["interactions"]:
             w = _mlp(ip["filter"], rbf) * (env * batch["edge_mask"])[:, None]
             xin = _mlp(ip["in_lin"], h)
-            m = segment_sum(gather_rows(xin, src) * w, dst, n)
+            m = lookup.segment_sum(lookup.embedding(src, xin) * w, dst, n)
             h = h + _mlp(ip["out"], m)
         atom_e = _mlp(params["head"], h)[:, 0] * batch["node_mask"]
-        return segment_sum(atom_e, batch["graph_ids"].long(), n_graphs)
+        return lookup.segment_sum(atom_e, batch["graph_ids"].long(), n_graphs)
 
     if cfg.arch == "egnn":
         pos = batch["pos"]
         h = _mlp(params["embed"], batch["node_feat"], final_act=True)
         for lp in params["layers"]:
-            dvec = gather_rows(pos, src) - gather_rows(pos, dst)
+            dvec = lookup.embedding(src, pos) - lookup.embedding(dst, pos)
             d2 = (dvec * dvec).sum(-1, keepdim=True)
-            m = _mlp(lp["phi_e"], torch.cat([gather_rows(h, src),
-                                             gather_rows(h, dst), d2], -1),
+            m = _mlp(lp["phi_e"], torch.cat([lookup.embedding(src, h),
+                                             lookup.embedding(dst, h), d2], -1),
                      final_act=True) * emask
             coef = torch.tanh(_mlp(lp["phi_x"], m))             # bounded update
-            pos = pos + segment_sum(dvec * coef * emask, dst, n) / 16.0
-            magg = segment_sum(m, dst, n)
+            pos = pos + lookup.segment_sum(dvec * coef * emask, dst, n) / 16.0
+            magg = lookup.segment_sum(m, dst, n)
             h = h + _mlp(lp["phi_h"], torch.cat([h, magg], -1))
         atom_e = _mlp(params["head"], h)[:, 0] * batch["node_mask"]
-        return segment_sum(atom_e, batch["graph_ids"].long(), n_graphs)
+        return lookup.segment_sum(atom_e, batch["graph_ids"].long(), n_graphs)
 
     raise ValueError(cfg.arch)
 

@@ -38,8 +38,9 @@ BATCH_AXES = ("pod", "data")
 
 def shard_hint(x, *spec):
     """The identity.  In the reference this pins an activation's layout on
-    the device mesh (and is a no-op without one); the port has no mesh yet:
-    the sharding rules come with ``launch/sharding.py`` in a later slice."""
+    the device mesh (and is a no-op without one).  The port runs on one
+    card, where nothing shards; its sharding rules are data
+    (``launch/sharding.py``), read by the dry run."""
     assert len(spec) == x.ndim, (spec, x.shape)
     return x
 

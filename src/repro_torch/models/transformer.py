@@ -8,16 +8,14 @@ parameter tree over as it is.  The reference's ``lax.scan`` over layers
 becomes a Python loop over one ``unbind(0)`` of each stacked leaf per
 forward (indexing ``v[i]`` a layer would make every layer's backward
 allocate a zero tensor the size of the whole stack), with
-``torch.utils.checkpoint`` per layer when ``cfg.remat``.  Row lookups go
-through ``F.embedding``, whose backward sums in a fixed order on the CPU
-(an indexing backward there adds with atomics in parallel), and a MoE
+``torch.utils.checkpoint`` per layer when ``cfg.remat``.  The token
+embedding goes through ``lookup.embedding``, whose backward sums a token's
+rows in a fixed order (the ``segment_sum`` kernel on the card), and a MoE
 layer combines its experts' rows by a gather and a sum in choice order
 (``layers.moe_layer``), so a resumed run repeats an uninterrupted one bit
-for bit on the CPU and on the GPU, for dense and MoE configs alike
-(``chip_smoke.py``'s ``lm.launch``).  One limit on the GPU: there
-``F.embedding``'s backward did not repeat for rows looked up thousands of
-times in one batch (DLRM's small tables), which a token batch of that
-size would also do.
+for bit on the CPU and on the GPU, for dense and MoE configs alike, even
+for a batch that repeats one token thousands of times (``chip_smoke.py``'s
+``lm.launch`` and ``lm.repeat``).
 
 Steps:
   train_step    causal-LM loss + AdamW update (train_* shapes)
@@ -31,11 +29,11 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import lookup
 from repro_torch.train import optimizer as opt
 from repro_torch.tree import (numpy_to_tensor, tensor_to_numpy, tree_map,
                               value_and_grad)
@@ -115,15 +113,19 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
                 device: DeviceLike = None) -> Params:
     """Random parameters on ``device`` (``None``: the GPU), drawn from
     ``generator``, which must live on that device; the reference's
-    distributions and layout (not its random stream)."""
+    distributions and layout (not its random stream).  On ``"meta"`` (the
+    dry run's shapes) nothing is drawn and any generator will do."""
     dev = resolve_device(device)
-    if generator.device.type != dev.type:
+    meta = dev.type == "meta"
+    if not meta and generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, params on {dev}")
     dt = cfg.torch_dtype
     D, F, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     H, Hkv, dh, Ln = cfg.n_heads, cfg.n_kv_heads, cfg.dh, cfg.n_layers
 
     def w(shape, scale=1.0):
+        if meta:
+            return torch.empty(shape, dtype=dt, device=dev)
         return L.dense_init(generator, shape, scale).to(dt)
 
     def const(shape, value):
@@ -244,7 +246,7 @@ def forward(params, tokens, cfg: LMConfig, collect_cache: bool = False):
     """tokens [B, S] -> hidden [B, S, D] (and the stacked KV cache, each
     [L, B, S, Hkv, dh], if asked)."""
     B, S = tokens.shape
-    x = F.embedding(tokens, params["embed"])
+    x = lookup.embedding(tokens, params["embed"])
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     remat = cfg.remat and torch.is_grad_enabled()
     ks, vs = [], []
@@ -328,7 +330,7 @@ def make_serve_step(cfg: LMConfig):
     def serve_step(params, cache, token, cur_len):
         cur_len = int(cur_len)
         B = token.shape[0]
-        x = F.embedding(token, params["embed"])            # [B, 1, D]
+        x = lookup.embedding(token, params["embed"])       # [B, 1, D]
         positions = torch.full((B, 1), cur_len, dtype=torch.int32,
                                device=token.device)
         T = cache["k"].shape[2]

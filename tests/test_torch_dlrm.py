@@ -248,3 +248,56 @@ def test_donated_train_step_equals_the_functional_one(carried):
                                                         s_d.nu)))):
         assert torch.equal(a, b)
     assert int(s_d.step) == 2
+
+
+# --- the row-sharded lookup ---------------------------------------------------
+@pytest.mark.parametrize("slots", [1, 2, 4])
+def test_row_sharded_lookup_is_bit_equal_to_the_unsharded(carried, slots):
+    """``shard_tables`` over S slots (the smoke tables' padded rows all
+    divide 4, so each splits into S row blocks; an added 5-row table stays
+    whole at S = 2 and 4) and ``table_parallel_lookup``: the embeddings
+    and every table's gradient bit-equal to the lookup of the whole
+    tables, with ids repeated many times a batch."""
+    from repro_torch.launch.mesh import make_local_mesh
+    _, _, cfg, tp = carried
+    tables = [t.clone() for t in tp["tables"]] + [torch.randn(5, 128)]
+    rng = np.random.default_rng(slots)
+    ids = torch.as_tensor(np.stack(
+        [rng.integers(0, t.shape[0], 300) for t in tables], 1))
+    g = torch.as_tensor(rng.standard_normal((len(tables), 300, 128))
+                        .astype(np.float32))
+    whole = [t.clone().requires_grad_() for t in tables]
+    want = T.table_parallel_lookup(whole, ids)
+    torch.autograd.backward(want, list(g))
+    placed = T.shard_tables([t.clone() for t in tables],
+                            make_local_mesh(slots, device="cpu"))
+    leaves = [tuple(b.detach().requires_grad_() for b in t)
+              if isinstance(t, tuple) else t.detach().requires_grad_()
+              for t in placed]
+    assert isinstance(leaves[0], tuple) and len(leaves[0]) == slots
+    assert isinstance(leaves[-1], tuple) == (slots == 1)
+    got = T.table_parallel_lookup(leaves, ids)
+    torch.autograd.backward(got, list(g))
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), i
+    for i, (leaf, ref) in enumerate(zip(leaves, whole)):
+        grad = (torch.cat([b.grad for b in leaf]) if isinstance(leaf, tuple)
+                else leaf.grad)
+        assert torch.equal(grad, ref.grad), i
+
+
+def test_row_sharded_train_step_equals_the_unsharded(carried):
+    """One AdamW step on row-sharded parameters: the loss and every
+    updated row bit-equal to the step on whole tables."""
+    from repro_torch.launch.mesh import make_local_mesh
+    _, _, cfg, tp = carried
+    to = topt.AdamWConfig(**OCFG)
+    step = T.make_dlrm_train_step(cfg, to)
+    _, tb = _train_batch(cfg, 64, 5)
+    p1, _, m1 = step(tp, topt.adamw_init(tp, to), tb)
+    sharded = {**tp, "tables": T.shard_tables(
+        tp["tables"], make_local_mesh(4, device="cpu"))}
+    p4, _, m4 = step(sharded, topt.adamw_init(sharded, to), tb)
+    assert torch.equal(m1["loss"], m4["loss"])
+    for a, b in zip(p1["tables"], p4["tables"]):
+        assert torch.equal(a, torch.cat(b) if isinstance(b, tuple) else b)

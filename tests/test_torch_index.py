@@ -194,7 +194,11 @@ new = ["repro_torch.quant.sq8", "repro_torch.kernels.sq8_distance",
        "repro_torch.configs.arctic_480b", "repro_torch.models.gnn",
        "repro_torch.configs.schnet", "repro_torch.configs.gat_cora",
        "repro_torch.configs.egnn", "repro_torch.configs.gin_tu",
-       "repro_torch.train.compress"]
+       "repro_torch.train.compress", "repro_torch.kernels.segment_sum",
+       "repro_torch.models.lookup", "repro_torch.models.api",
+       "repro_torch.launch.sharding", "repro_torch.launch.dryrun",
+       "repro_torch.roofline", "repro_torch.roofline.hw",
+       "repro_torch.roofline.analysis"]
 assert all(m in mods for m in new), (new, mods)
 import chip_smoke
 import importlib.util
