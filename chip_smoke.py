@@ -2,6 +2,8 @@
 """Drive the PyTorch/CUDA port's main path on one GPU and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --tree DIR   # the step profiles alone, on
+                                       # DIR/src (another checkout)
 
 Phases, each printing one JSON line:
 
@@ -38,9 +40,11 @@ Phases, each printing one JSON line:
    base off 16-byte alignment; l2 and ip, fp32 and bf16 inputs) must agree
    with its plain version within rtol 1e-4, atol 1e-4*d; ``segment_sum``
    (``segment_sum_cases``: one id repeated 65,536 times, 3- and 155-row
-   tables at B = 4,096 and 65,536, empty segments; d in {1, 64, 128,
-   960}; fp32 and bf16) must be bit-equal to its plain version on CPU
-   copies, two calls bit-equal, one counted launch a call.
+   tables at B = 4,096 and 65,536, a 14-row one at 65,536, empty
+   segments, a GNN aggregation's S ~ N ~ 170k, one hot id holding half of
+   65,536 rows; d in {1, 64, 128, 960}; fp32 and bf16) must be bit-equal
+   to its plain version on CPU copies, the call given the ids and the call
+   given their runs bit-equal, one counted launch a call.
 2b. ``lm``    — the LM family (``repro_torch.models.transformer``; plain
    PyTorch and cuBLAS, and ``segment_sum`` for the token embedding's
    backward; none of the six search kernels: their counts must stay 0).
@@ -89,7 +93,11 @@ Phases, each printing one JSON line:
    slots of the card at those tables must equal the whole tables' lookup
    bit for bit, forward and gradient.  The lm, gnn and dlrm.train paths
    must launch ``segment_sum`` (every lookup's backward and every segment
-   sum) and none of the six search kernels.
+   sum) and none of the six search kernels.  ``step_profiles``: one
+   gin-tu ``ogb_products`` step and one ``dlrm.train`` step under the
+   profiler, each with its peak memory and the device ms of
+   ``segment_sum`` and of its set-up (every kernel launched inside
+   ``segment_sum.runs``).
    ``quickstart``: ``examples/quickstart_torch.py`` as a subprocess (5,000
    x 128, HNSW m=16, efc=128; routers none, crouting, finger at efs=96 on
    the fused engine): exit 0, its "CRouting skipped" line; its launches
@@ -226,9 +234,12 @@ Phases, each printing one JSON line:
    on the same grid (``empty_launch_ms``) and, for the row kernels, the
    kernel's time on the same inputs with every lane masked, which reads
    no row (``no_rows_device_ms``).  ``segment_sum`` at the lookups' and
-   aggregations' shapes of the lm, gnn and dlrm.train paths, beside one
-   ``torch.index_add`` call (atomics) and the whole wrapper call
-   (``wrapper_ms``: sort, searchsorted, kernel).
+   aggregations' shapes of the lm, gnn and dlrm.train paths and on a
+   skewed id list, beside one ``torch.index_add`` call (atomics), the
+   whole wrapper call (``wrapper_ms``: set-up and kernel), the set-up
+   alone (int32 and int64 keys), the device time with the run-start
+   grid's zeroing, and the chain bound (the longest run times the card's
+   dependent add, ``add_chain``: a one-thread chain of 10^6 adds).
 
 For phases 3, 4, 4c, 6 and the index of 7 each kernel engine must launch
 exactly the kernels its (engine, spec) runs (``expected_kernels``; every
@@ -965,25 +976,43 @@ def check_l2_distance(dev):
 SEG_VOCABS = (3, 155)
 SEG_BATCHES = (4096, 65536)
 SEG_DIMS = (1, 64, 128, 960)
+SEG_HOT_ID = 4321          # the skewed cases' hot id
 
 
 def segment_sum_cases():
     """(what, N, S, id range) of the kernel check: one id repeated 65,536
-    times; 3- and 155-row tables at B = 4,096 and 65,536; empty segments
-    (ids on every third segment of 3,000, and a segment count past every
-    id)."""
+    times; 3- and 155-row tables at B = 4,096 and 65,536, and a 14-row one
+    at 65,536 (runs of ~4,700 rows); empty segments (ids on every third
+    segment of 3,000, and a segment count past every id); a GNN
+    aggregation's shape (S ~ N ~ 170k, gin-tu at ``minibatch_lg``); a
+    skewed list (one id holds half of 65,536 rows, the rest uniform over
+    100k ids, as hot ids in real DLRM traffic)."""
     cases = [("one id x 65536", 65536, 1, 1)]
     cases += [(f"{v}-row table, B={b}", b, -(-v // 16) * 16, v)
               for v in SEG_VOCABS for b in SEG_BATCHES]
-    cases += [("every third segment of 3000", 4096, 3000, 1000),
-              ("segments past every id", 4096, 20000, 500)]
+    cases += [("14-row table, B=65536", 65536, 16, 14),
+              ("every third segment of 3000", 4096, 3000, 1000),
+              ("segments past every id", 4096, 20000, 500),
+              ("gnn-like, S ~ N ~ 170k", 168960, 169984, 169984),
+              ("skewed: one id holds half", 65536, 100000, 100000)]
     return cases
+
+
+def segment_sum_ids(rng, what, N, span):
+    """The ids of one ``segment_sum_cases`` case."""
+    ids = rng.integers(0, span, N)
+    if what.startswith("every third"):
+        ids = ids * 3
+    if what.startswith("skewed"):
+        ids[rng.permutation(N)[: N // 2]] = SEG_HOT_ID
+    return ids
 
 
 def check_segment_sum(dev):
     """The kernel against its plain version on CPU copies, bit for bit, for
     every case of ``segment_sum_cases`` at d in ``SEG_DIMS`` in fp32 and
-    bf16; two calls bit-equal; one counted launch a wrapper call."""
+    bf16; the call given the ids and the call given their runs
+    (``segment_sum.runs``) bit-equal; one counted launch a wrapper call."""
     import numpy as np
     import torch
     from repro_torch.kernels import ref
@@ -991,10 +1020,7 @@ def check_segment_sum(dev):
     rng = np.random.default_rng(7)
     rows = []
     for what, N, S, span in segment_sum_cases():
-        ids = rng.integers(0, span, N)
-        if what.startswith("every third"):
-            ids = ids * 3
-        ids_c = torch.as_tensor(ids)
+        ids_c = torch.as_tensor(segment_sum_ids(rng, what, N, span))
         for d in SEG_DIMS:
             base = torch.as_tensor(rng.standard_normal((N, d))
                                    .astype(np.float32))
@@ -1002,8 +1028,10 @@ def check_segment_sum(dev):
                 data_c = base.to(dt)
                 want = ref.segment_sum_ref(data_c, ids_c, S)
                 data, ids_d = data_c.to(dev), ids_c.to(dev)
+                runs = K.runs(ids_d, S)
                 before = K.LAUNCHES["segment_sum"]
-                got = [K.segment_sum(data, ids_d, S) for _ in range(2)]
+                got = [K.segment_sum(data, ids_d, S),
+                       K.segment_sum(data, runs, S)]
                 torch.cuda.synchronize()
                 launches = K.LAUNCHES["segment_sum"] - before
                 same = bit_equal(got[0].cpu(), want)
@@ -3263,6 +3291,142 @@ def dlrm_train(dev):
             "secs": time.perf_counter() - t_phase}
 
 
+# kernel classes of a profiled step by name, besides the set-up
+STEP_CLASSES = (("segment_sum", ("segment_sum_kernel",)),
+                ("searchsorted", ("searchsorted",)),
+                ("sort", ("sort", "Sort", "radix", "Radix")),
+                ("memset", ("Memset",)))
+SETUP_RANGE = "segment_sum.runs"
+
+
+def _step_class(name: str) -> str:
+    return next((c for c, keys in STEP_CLASSES
+                 if any(k in name for k in keys)), "other")
+
+
+def step_device_profile(step):
+    """One call of ``step`` (warmed by one call before) under
+    torch.profiler, with every call of ``segment_sum.runs`` (the set-up,
+    whether a lookup or the wrapper makes it) inside a ``SETUP_RANGE``
+    range: wall ms, device busy ms, the step's peak memory, ``setup``: the
+    device ms and count of every kernel launched inside those ranges (the
+    cast, sort, searchsorted and the long-run list's small ops; by class
+    in ``setup_by_class``), and each ``STEP_CLASSES`` class (by kernel
+    name) and the rest, outside the set-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels import segment_sum as K
+    step()
+    torch.cuda.synchronize()
+    setup_fn, calls = K.runs, [0]
+
+    def runs(*args, **kw):
+        calls[0] += 1
+        with record_function(SETUP_RANGE):
+            return setup_fn(*args, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    K.runs = runs
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _pad_launches(TRACE_PAD_LAUNCHES)
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            _pad_launches(TRACE_PAD_LAUNCHES)
+    finally:
+        K.runs = setup_fn
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    names = [c for c, _ in STEP_CLASSES] + ["other"]
+    by = {c: {"device_ms": 0.0, "count": 0} for c in names}
+    setup_by = {c: {"device_ms": 0.0, "count": 0} for c in names}
+    events = prof.events()
+    for e in events:
+        if ("CUDA" not in str(e.device_type) or PAD_KERNEL in e.name
+                or e.name == SETUP_RANGE
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "device_time", None) or getattr(e, "cuda_time", 0)
+        cls = by[_step_class(e.name)]
+        cls["device_ms"] += us / 1e3
+        cls["count"] += 1
+
+    def under(e):                   # the event and every op inside it
+        yield e
+        for c in e.cpu_children:
+            yield from under(c)
+    ranges = [e for e in events if e.name == SETUP_RANGE
+              and "CPU" in str(e.device_type)]
+    for e in ranges:
+        for op in under(e):
+            for k in op.kernels:         # moved from its class to setup_by
+                if PAD_KERNEL in k.name:
+                    continue
+                c, ms = _step_class(k.name), k.duration / 1e3
+                setup_by[c]["device_ms"] += ms
+                setup_by[c]["count"] += 1
+                by[c]["device_ms"] -= ms
+                by[c]["count"] -= 1
+    setup = {"device_ms": sum(v["device_ms"] for v in setup_by.values()),
+             "count": sum(v["count"] for v in setup_by.values())}
+    check(calls[0] == 0 or setup["count"] > 0,
+          f"step profile: {calls[0]} set-up calls, but no kernel was "
+          f"found inside the {SETUP_RANGE} ranges ({len(ranges)} kept)")
+    busy = sum(v["device_ms"] for v in by.values()) + setup["device_ms"]
+    return {"wall_ms": wall, "device_busy_ms": busy, "peak_gb": peak,
+            "setup_calls": calls[0], "setup": setup,
+            "setup_by_class": setup_by, **by}
+
+
+def segment_sum_step_profiles(dev):
+    """One gin-tu ``ogb_products`` train step and one ``dlrm.train`` step
+    (as the ``gnn`` and ``dlrm.train`` phases build them) under the
+    profiler (``step_device_profile``): how much of each is the segment
+    sum's kernel and how much its set-up (``segment_sum.runs``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import dlrm_batch
+    from repro_torch.models import dlrm as M
+    from repro_torch.models import gnn as G
+    from repro_torch.train import optimizer as opt
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(4)
+    spec = get_arch("gin-tu")
+    n, e, n_pad, e_pad, f, c, g = gnn_dims(spec.shape("ogb_products"))
+    cfg = dataclasses.replace(spec.model_cfg, n_classes=c)
+    batch = graph_batch_on(dev, gen, n, e, n_pad, e_pad, f, c, g,
+                           cfg.task)
+    params = G.init_gnn(cfg, f, gen, dev)
+    ocfg = opt.AdamWConfig()
+    state = opt.adamw_init(params, ocfg)
+    step = G.make_gnn_train_step(cfg, ocfg)
+    out["gin-tu/ogb_products"] = step_device_profile(
+        lambda: step(params, state, batch))
+    del batch, params, state
+    torch.cuda.empty_cache()
+    arch = get_arch("dlrm-mlperf")
+    dcfg = dataclasses.replace(arch.model_cfg, vocab_cap=VOCAB_CAP)
+    B = arch.shape("train_batch").dims["batch"]
+    nb = dlrm_batch(dcfg.n_dense, [min(v, VOCAB_CAP)
+                                   for v in dcfg.vocab_sizes], B, seed=3)
+    dbatch = {k: torch.as_tensor(v, device=dev) for k, v in nb.items()}
+    dparams = M.init_dlrm(dcfg, torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    dstate = opt.adamw_init(dparams, ocfg)
+    dstep = M.make_dlrm_train_step(dcfg, ocfg, donate=True)
+    held = {}
+
+    def one():
+        held["p"], held["s"], _ = dstep(held.get("p", dparams),
+                                        held.get("s", dstate), dbatch)
+    out["dlrm.train"] = step_device_profile(one)
+    del dparams, dstate, held, dbatch
+    torch.cuda.empty_cache()
+    return out
+
+
 DLRM_SLOTS = 4
 
 
@@ -4170,22 +4334,65 @@ def cells_phase(dev, lm_rows, gnn_rows, dlrm_row, main_launches):
     return rows
 
 
+def add_chain_ms():
+    """The card's dependent fp32 add: one thread's chain of ``10**6``
+    ``__fadd_rn`` (``segment_sum.add_chain``, from the kernel's library),
+    ms a link."""
+    import torch
+    from repro_torch.kernels import segment_sum as K
+    out = torch.zeros(1, device="cuda")
+    n = 10 ** 6
+    total = cuda_times(lambda: K.add_chain(out, n), 5, group=5)
+    check(float(out) == float(n), f"add chain: {float(out)} != {n}")
+    return {"adds": n, "ms": total, "ns_an_add": total * 1e6 / n,
+            "ms_an_add": total / n}
+
+
+def call_device_ms(fn, reps: int = 50):
+    """All device time (kernels and memsets) of one call of ``fn`` and the
+    activities the trace kept a call: ``wrapper_row`` with no flush."""
+    got = wrapper_row(fn, lambda: None, reps)
+    return got["wrapper_device_ms"], got["wrapper_launches"], \
+        got["wrapper_kernels"]
+
+
+def runs_int64(ids, S):
+    """The set-up as it stood before int32 keys and the long-run list: a
+    stable sort of int64 ids, arange and searchsorted (timed beside
+    ``segment_sum.runs``)."""
+    import torch
+    flat = ids.reshape(-1).long()
+    sorted_ids, order = torch.sort(flat, stable=True)
+    return sorted_ids, order, torch.searchsorted(
+        sorted_ids, torch.arange(S + 1, device=flat.device))
+
+
 def time_segment_sum():
     """``segment_sum`` at the main path's shapes (the lookups' backward of
     ``dlrm.train``: a 3-row table's and a 4M-row table's [65,536, 128]
     gradient rows; ``lm.train``'s token embedding, [1,024, 1,024] bf16 rows
     into granite-moe's 49,280-row vocabulary; gin-tu's aggregation at
-    ``minibatch_lg``): the kernel alone on runs set up beforehand, the
-    whole wrapper call (sort, searchsorted, kernel), the plain version on
+    ``minibatch_lg``; a skewed list, one id holding half of 65,536 rows and
+    the rest over 100k ids): the kernel alone on runs set up beforehand
+    (events: ``ms``; the profiler: ``device_ms``, the kernel, and
+    ``device_ms_with_memset``, the kernel and the run-start grid's zeroing),
+    the whole wrapper call given the ids (set-up and kernel:
+    ``wrapper_ms``, ``wrapper_device_ms``), the set-up alone with int32 and
+    with int64 keys (``runs_ms``, ``runs_int64_ms``) and its stable sort
+    alone (``sort_int32_ms``, ``sort_int64_ms``), the plain version on
     the card, and ``torch.index_add`` (atomics: one PyTorch call that
     computes the same sum in no fixed order).  Inputs are fresh in L2, as
-    a backward that just wrote them leaves them.  The bound counts the
-    rows and ids read and the output written once."""
+    a backward that just wrote them leaves them.  ``bound_ms`` counts the
+    rows and ids read and the output written once; ``chain_bound_ms`` is
+    the longest run's adds at the card's dependent add time
+    (``add_chain_ms``), which no order-keeping kernel can beat."""
     import torch
     from repro_torch.kernels import ref
     from repro_torch.kernels import segment_sum as K
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
+    chain = add_chain_ms()
+    emit({"phase": "add_chain", **chain})
     out = []
     for what, N, S, span, d, dt in (
             ("dlrm small-table backward (3-row vocab)", 65536, 16, 3, 128,
@@ -4195,20 +4402,26 @@ def time_segment_sum():
             ("lm.train token embedding backward", 1024, 49280, 49155, 1024,
              torch.bfloat16),
             ("gin-tu minibatch_lg aggregation", 168960, 169984, 169984, 64,
+             torch.float32),
+            ("skewed ids: one id holds half", 65536, 100000, 100000, 128,
              torch.float32)):
         data = torch.randn((N, d), generator=gen, device=dev).to(dt)
         ids = torch.randint(0, span, (N,), generator=gen, device=dev)
-        sorted_ids, order, offsets = K.runs(ids, S)
+        if what.startswith("skewed"):
+            hot = torch.randperm(N, generator=gen, device=dev)[: N // 2]
+            ids[hot] = SEG_HOT_ID
+        runs = K.runs(ids, S)
+
+        def kernel():
+            return K.launch_runs(data, runs)
         zeros = torch.zeros((S, d), dtype=dt, device=dev)
-        got = K.launch_runs(data, sorted_ids, order, offsets, S).cpu()
+        got = kernel().cpu()
         want = ref.segment_sum_ref(data.cpu(), ids.cpu(), S)
         check(bit_equal(got, want), f"segment_sum timing inputs {what}: the "
               "kernel differs from its plain version")
         e = data.element_size()
         row = timed_row(
-            "segment_sum",
-            lambda: K.launch_runs(data, sorted_ids, order, offsets, S),
-            lambda: ref.segment_sum_ref(data, ids, S),
+            "segment_sum", kernel, lambda: ref.segment_sum_ref(data, ids, S),
             N * d * e + 8 * N + S * d * e, N * d,
             float((got.float() - want.float()).abs().max()) if N else 0.0,
             f"{what}: [{N}, {d}] {str(dt).removeprefix('torch.')} -> "
@@ -4216,13 +4429,30 @@ def time_segment_sum():
                                                              data),
             library_note="torch.index_add (CUDA atomics, no fixed order; "
                          "the port never calls it)")
+        row["longest_run"] = int((runs.offsets[1:]
+                                  - runs.offsets[:-1]).max())
+        row["plan"] = K.plan(N, S, d, e, K.alignment(data))._asdict()
+        row["long_runs"] = int((runs.long < S).sum())
+        row["chain_bound_ms"] = row["longest_run"] * chain["ms_an_add"]
+        (row["device_ms_with_memset"], row["device_activities"],
+         row["device_names"]) = call_device_ms(kernel)
         row["wrapper_ms"] = cuda_times(lambda: K.segment_sum(data, ids, S),
                                        50)
+        (row["wrapper_device_ms"], row["wrapper_activities"],
+         row["wrapper_names"]) = call_device_ms(
+            lambda: K.segment_sum(data, ids, S))
+        row["runs_ms"] = cuda_times(lambda: K.runs(ids, S), 50)
+        row["runs_int64_ms"] = cuda_times(lambda: runs_int64(ids, S), 50)
+        keys32, keys64 = ids.int(), ids.long()
+        row["sort_int32_ms"] = cuda_times(
+            lambda: torch.sort(keys32, stable=True), 50)
+        row["sort_int64_ms"] = cuda_times(
+            lambda: torch.sort(keys64, stable=True), 50)
         row["replaces_note"] = ("no Pallas kernel: the reference sums rows "
                                 "by id with XLA's scatter-add "
                                 "(jax.ops.segment_sum, jnp.take's backward)")
         out.append(row)
-        del data, ids, sorted_ids, order, offsets, zeros
+        del data, ids, runs, zeros, keys32, keys64
         torch.cuda.empty_cache()
     return out
 
@@ -4297,12 +4527,32 @@ def ptxas_summary(log: str):
     return out
 
 
+def segment_sum_tree(tree: str) -> int:
+    """``--tree DIR``: ``segment_sum_step_profiles`` alone, run on the
+    package under ``DIR/src``: another checkout, such as the parent commit
+    unpacked with ``git archive``, profiled the same way in the same call
+    (parent, change, change, parent).  It drives the model steps and wraps
+    ``kernels.segment_sum.runs``, so any tree with those serves."""
+    import torch
+    sys.path.insert(0, str(Path(tree).resolve() / "src"))
+    import repro_torch
+    from repro_torch.kernels import build
+    emit({"phase": "tree", "package": repro_torch.__file__,
+          "gpu": nvidia_smi("name,power.limit")})
+    build.build_all(["segment_sum"])
+    emit({"phase": "step_profiles",
+          **segment_sum_step_profiles(torch.device("cuda"))})
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a GPU", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tree"] and len(sys.argv) == 3:
+        return segment_sum_tree(sys.argv[2])
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     from repro_torch.core.angles import sample_angle_profile
@@ -4339,6 +4589,7 @@ def main() -> int:
     gnn_rows, gnn_seg = gnn_phase(dev)
     dlrm_row = dlrm_train(dev)
     emit(dlrm_row)
+    emit({"phase": "step_profiles", **segment_sum_step_profiles(dev)})
     main_launches = {"segment_sum": lm_seg + gnn_seg
                      + dlrm_row["segment_sum_launches"]}
     quickstart_phase(main_launches)

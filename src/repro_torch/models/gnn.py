@@ -6,7 +6,10 @@ aggregated over the dst index through ``models/lookup.py``: JAX's row
 takes become ``lookup.embedding`` and its ``segment_sum`` becomes
 ``lookup.segment_sum``, both of which sum rows by id in a fixed order
 (the ``segment_sum`` kernel on the card), so two identical steps repeat
-bit for bit there as on the CPU.
+bit for bit there as on the CPU.  Each id list's set-up for that kernel
+(``lookup.runs``: src and dst once a batch, a layer's edge-softmax
+segments once a layer) is passed to every lookup and sum over it, forward
+and backward.
 JAX's ``segment_max`` becomes ``scatter_reduce(..., "amax",
 include_self=False)`` from ``-inf`` (so an empty segment reads ``-inf`` as
 in JAX).  Covers the four archs:
@@ -73,9 +76,10 @@ def segment_softmax(scores, seg_ids, num_segments: int):
     seg_ids = seg_ids.long()
     smax = segment_max(scores, seg_ids, num_segments)
     smax = torch.where(torch.isfinite(smax), smax, torch.zeros_like(smax))
-    ex = torch.exp(scores - lookup.embedding(seg_ids, smax))
-    den = lookup.segment_sum(ex, seg_ids, num_segments)
-    return ex / torch.clamp_min(lookup.embedding(seg_ids, den), 1e-12)
+    seg = lookup.runs(seg_ids, num_segments)
+    ex = torch.exp(scores - lookup.embedding(seg, smax))
+    den = lookup.segment_sum(ex, seg, num_segments)
+    return ex / torch.clamp_min(lookup.embedding(seg, den), 1e-12)
 
 
 def _mlp_init(dims, dt, gen, dev):
@@ -173,13 +177,14 @@ def gnn_forward(params: Params, batch, cfg: GnnConfig):
     src, dst = batch["edge_src"].long(), batch["edge_dst"].long()
     emask = batch["edge_mask"][:, None]
     n = batch["node_mask"].shape[0]
+    src_r, dst_r = lookup.runs(src, n), lookup.runs(dst, n)
     n_graphs = batch["g_labels"].shape[0]
 
     if cfg.arch == "gin":
         h = _mlp(params["embed"], batch["node_feat"], final_act=True)
         for i in range(cfg.n_layers):
-            agg = lookup.segment_sum(lookup.embedding(src, h) * emask, dst,
-                                     n)
+            agg = lookup.segment_sum(lookup.embedding(src_r, h) * emask,
+                                     dst_r, n)
             h = _mlp(params["mlps"][i], (1.0 + params["eps"][i]) * h + agg)
             h = torch.relu(h)
         if cfg.task == "graph_class":
@@ -195,20 +200,20 @@ def gnn_forward(params: Params, batch, cfg: GnnConfig):
             z = torch.einsum("nf,fhd->nhd", h, lp["w"])         # [N, H, D]
             el = torch.einsum("nhd,hd->nh", z, lp["a_l"])
             er = torch.einsum("nhd,hd->nh", z, lp["a_r"])
-            e = F.leaky_relu(lookup.embedding(src, el)
-                             + lookup.embedding(dst, er), 0.2)   # [E, H]
+            e = F.leaky_relu(lookup.embedding(src_r, el)
+                             + lookup.embedding(dst_r, er), 0.2)  # [E, H]
             e = torch.where(emask_pos, e, torch.full_like(e, -math.inf))
             # edge-softmax per (dst, head): fold head into segment id
             H = e.shape[1]
             seg = dst[:, None] * H + torch.arange(H, device=dst.device)
             alpha = segment_softmax(e.reshape(-1), seg.reshape(-1), n * H)
             alpha = alpha.reshape(-1, H) * batch["edge_mask"][:, None]
-            msg = alpha[..., None] * lookup.embedding(src, z)   # [E, H, D]
-            out = lookup.segment_sum(msg, dst, n)
+            msg = alpha[..., None] * lookup.embedding(src_r, z)  # [E, H, D]
+            out = lookup.segment_sum(msg, dst_r, n)
             last = li == len(params["layers"]) - 1
             h = out.mean(dim=1) if last else F.elu(out.reshape(n, -1))
         if cfg.task == "graph_class":
-            gids = batch["graph_ids"].long()
+            gids = lookup.runs(batch["graph_ids"].long(), n_graphs)
             cnt = lookup.segment_sum(batch["node_mask"], gids, n_graphs)
             pooled = lookup.segment_sum(h * batch["node_mask"][:, None], gids,
                                  n_graphs)
@@ -218,7 +223,7 @@ def gnn_forward(params: Params, batch, cfg: GnnConfig):
     if cfg.arch == "schnet":
         pos = batch["pos"]
         h = lookup.embedding(batch["atom_z"].long(), params["embed"])
-        dvec = lookup.embedding(src, pos) - lookup.embedding(dst, pos)
+        dvec = lookup.embedding(src_r, pos) - lookup.embedding(dst_r, pos)
         dist = torch.sqrt(torch.clamp_min((dvec * dvec).sum(-1), 1e-12))
         rbf = _rbf_expand(dist, cfg.n_rbf, cfg.cutoff)
         # cosine cutoff envelope
@@ -227,7 +232,8 @@ def gnn_forward(params: Params, batch, cfg: GnnConfig):
         for ip in params["interactions"]:
             w = _mlp(ip["filter"], rbf) * (env * batch["edge_mask"])[:, None]
             xin = _mlp(ip["in_lin"], h)
-            m = lookup.segment_sum(lookup.embedding(src, xin) * w, dst, n)
+            m = lookup.segment_sum(lookup.embedding(src_r, xin) * w, dst_r,
+                                   n)
             h = h + _mlp(ip["out"], m)
         atom_e = _mlp(params["head"], h)[:, 0] * batch["node_mask"]
         return lookup.segment_sum(atom_e, batch["graph_ids"].long(), n_graphs)
@@ -236,14 +242,15 @@ def gnn_forward(params: Params, batch, cfg: GnnConfig):
         pos = batch["pos"]
         h = _mlp(params["embed"], batch["node_feat"], final_act=True)
         for lp in params["layers"]:
-            dvec = lookup.embedding(src, pos) - lookup.embedding(dst, pos)
+            dvec = lookup.embedding(src_r, pos) - lookup.embedding(dst_r, pos)
             d2 = (dvec * dvec).sum(-1, keepdim=True)
-            m = _mlp(lp["phi_e"], torch.cat([lookup.embedding(src, h),
-                                             lookup.embedding(dst, h), d2], -1),
-                     final_act=True) * emask
+            m = _mlp(lp["phi_e"], torch.cat([lookup.embedding(src_r, h),
+                                             lookup.embedding(dst_r, h), d2],
+                                            -1), final_act=True) * emask
             coef = torch.tanh(_mlp(lp["phi_x"], m))             # bounded update
-            pos = pos + lookup.segment_sum(dvec * coef * emask, dst, n) / 16.0
-            magg = lookup.segment_sum(m, dst, n)
+            pos = pos + lookup.segment_sum(dvec * coef * emask, dst_r,
+                                           n) / 16.0
+            magg = lookup.segment_sum(m, dst_r, n)
             h = h + _mlp(lp["phi_h"], torch.cat([h, magg], -1))
         atom_e = _mlp(params["head"], h)[:, 0] * batch["node_mask"]
         return lookup.segment_sum(atom_e, batch["graph_ids"].long(), n_graphs)
