@@ -29,6 +29,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import distances as D
 from repro_torch.core.angles import AngleProfile, sample_angle_profile
 from repro_torch.core.graph import GraphIndex
@@ -162,13 +163,15 @@ class AnnIndex:
                 cos_theta = 0.0   # never read by a non-pruning router
         k = spec.k
         res = fn(queries, cos_theta)
-        ids = res.ids[:, :k].cpu().numpy().astype(np.int64)
-        dists = res.dists[:, :k].cpu().numpy().copy()
-        # empty slots resolve to the pad row: mask BOTH columns
-        pad = ids >= self.graph.n
-        ids[pad] = -1
-        dists[pad] = np.inf
-        return ids, dists, SearchStats.from_result(res, router=spec.router)
+        with trace.span("search.to_host"):
+            ids = res.ids[:, :k].cpu().numpy().astype(np.int64)
+            dists = res.dists[:, :k].cpu().numpy().copy()
+            # empty slots resolve to the pad row: mask BOTH columns
+            pad = ids >= self.graph.n
+            ids[pad] = -1
+            dists[pad] = np.inf
+            stats = SearchStats.from_result(res, router=spec.router)
+        return ids, dists, stats
 
     # --- persistence ----------------------------------------------------------
     def _payload(self) -> Dict[str, np.ndarray]:

@@ -12,12 +12,19 @@ comes first.  ``torch.topk`` promises no order among ties, so it selects
 before the first ``k+1`` are kept.  Only a run of more than ``TIE_MARGIN``
 exactly equal distances at the boundary could still pick other members
 than XLA does.
+
+The device seconds of the blocks' products (``met.pairwise``) and of their
+selection (``topk``, the two stable sorts, the self drop and the gathers)
+add to the totals ``knn.product_s`` and ``knn.select_s`` of
+``repro_torch.trace``, timed by CUDA events read after the final copy to
+the host (on the CPU, by the host clock).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import distances as D
 from repro_torch.core.graph import GraphIndex
 from repro_torch.device import DeviceLike, resolve_device
@@ -48,11 +55,16 @@ def build_knn_graph(base: np.ndarray, k: int = 32, metric: str = "l2",
     nb = torch.empty((n, k), dtype=torch.int32, device=dev)
     ed = torch.empty((n, k), dtype=torch.float32, device=dev)
     kk = k + 1
+    watch = trace.Stopwatch(dev)
     for s in range(0, n, block):
         q = xb[s: s + block]
         rows = torch.arange(s, s + q.shape[0], device=dev)
-        dvals, idx = torch.topk(met.pairwise(q, xb), min(kk + TIE_MARGIN, n),
-                                dim=1, largest=False, sorted=False)
+        t0 = watch.mark()
+        dmat = met.pairwise(q, xb)
+        t1 = watch.mark()
+        dvals, idx = torch.topk(dmat, min(kk + TIE_MARGIN, n), dim=1,
+                                largest=False, sorted=False)
+        del dmat
         dvals, idx = _sort_by_dist_then_id(dvals, idx)
         dvals, idx = dvals[:, :kk], idx[:, :kk]
         # drop the self lane; a row whose k+1 nearest miss self drops its
@@ -62,6 +74,8 @@ def build_knn_graph(base: np.ndarray, k: int = 32, metric: str = "l2",
         keep = torch.sort(drop.to(torch.int8), dim=1, stable=True).indices[:, :k]
         ids = idx.gather(1, keep)
         rank = dvals.gather(1, keep)
+        watch.lap("knn.product_s", t0, t1)
+        watch.lap("knn.select_s", t1, watch.mark())
         if metric == "l2":
             eu = torch.sqrt(torch.clamp_min(rank, 0.0))
         else:
@@ -75,7 +89,8 @@ def build_knn_graph(base: np.ndarray, k: int = 32, metric: str = "l2",
     # the JAX package
     centroid = base.mean(axis=0, keepdims=True)
     entry = int(np.argmin(D.pairwise_np(centroid, base, metric)[0]))
-    return GraphIndex(vectors=base, neighbors=nb.cpu().numpy(),
-                      edge_eu_dist=ed.cpu().numpy(), entry_point=entry,
-                      metric=metric, norms=norms, kind="knn",
-                      build_stats={"k": k})
+    neighbors, edges = nb.cpu().numpy(), ed.cpu().numpy()
+    watch.commit()              # the copies waited for every block
+    return GraphIndex(vectors=base, neighbors=neighbors, edge_eu_dist=edges,
+                      entry_point=entry, metric=metric, norms=norms,
+                      kind="knn", build_stats={"k": k})

@@ -36,7 +36,9 @@ pool at the end.  ``SearchResult.rerank_calls`` counts stage-2 evaluations
 
 The loop runs eagerly: its condition (some query not done, fewer than
 ``max_hops`` iterations) is read on the host once per iteration, and
-``SearchResult.iters`` reports how many there were.
+``SearchResult.iters`` reports how many there were.  ``repro_torch.trace``
+logs each engine call's loop time, split into that read's wait and the
+rest, and names the loop's phases as spans.
 
 Translation notes against the JAX engine:
 
@@ -68,12 +70,14 @@ id N and distance +inf.
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core.graph import GraphIndex
 from repro_torch.core.routers import RouterContext, get_router
 from repro_torch.core.spec import SearchSpec
@@ -148,9 +152,12 @@ def ensure_sq8_arrays(g: GraphIndex, arrays: Dict[str, Any]) -> Dict[str, Any]:
     The grid is fit on the host to the real rows (``sq8_train``), the codes
     are encoded there (``sq8_encode``; the pad row encodes the zero vector
     with the same grid, its distances are always masked) and then moved to
-    the arrays' device.  Exact-only searches never pay for them.
+    the arrays' device.  Exact-only searches never pay for them.  The
+    host seconds of the fit, the encode and the upload add to the total
+    ``engine.sq8_s`` (``repro_torch.trace``).
     """
     if "sq8_codes" not in arrays:
+        t0 = time.perf_counter()
         dev = arrays["vectors"].device
         qp = SQ.sq8_train(g.vectors)
         vecs = np.concatenate([g.vectors, np.zeros((1, g.dim), np.float32)],
@@ -159,6 +166,7 @@ def ensure_sq8_arrays(g: GraphIndex, arrays: Dict[str, Any]) -> Dict[str, Any]:
                        ("sq8_lo", qp.lo), ("sq8_scale", qp.scale),
                        ("sq8_eps", qp.eps)):
             arrays[key] = torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        trace.add("engine.sq8_s", time.perf_counter() - t0)
     return arrays
 
 
@@ -267,6 +275,13 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
     marks deleted nodes: they keep routing, but are masked out of the
     result pool after the loop (id -> n, dist -> +inf), before the sq8
     path's final rerank, then re-sorted.
+
+    Its phases are spans of ``repro_torch.trace``: ``search.init``, then an
+    iteration ``hop`` each with ``hop.sync`` (the one host sync),
+    ``hop.beam``, ``hop.tile``, ``hop.route``, ``hop.dist``, ``hop.status``
+    and ``hop.merge``, then ``search.final``.  The loop's host time, split
+    into the time blocked in the sync and the rest, adds to the engine call
+    in progress (``trace.hop_loop``).
     """
     metric, efs, n = cfg.metric, cfg.efs, arrays["n"]
     W, engine = cfg.beam_width, cfg.engine
@@ -282,6 +297,8 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         raise ValueError("the kernel engines encode ids as id*4+flags in "
                          "int32: shard below 2^29 vectors or use "
                          "engine='torch'")
+    ph = trace.phases()
+    ph.to("search.init")
     dev = queries.device
     vecs, norms = arrays["vectors"], arrays["norms"]
     queries = queries.to(torch.float32).contiguous()
@@ -351,8 +368,20 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
                      and not sq8_on)
     best_slot = torch.arange(L, device=dev)[None, :] < M
 
-    while iters < cfg.max_hops and not bool(done.all()):
+    t_loop, sync_ns = time.perf_counter_ns(), 0
+    while iters < cfg.max_hops:
+        ph.hop()
+        # --- the iteration's one host sync: is every query done? ----------
+        ph.to("hop.sync")
+        all_done = done.all()
+        t0 = time.perf_counter_ns()
+        finished = bool(all_done)
+        sync_ns += time.perf_counter_ns() - t0
+        if finished:
+            break
+
         # --- beam selection: best W unexpanded pool entries per query -----
+        ph.to("hop.beam")
         cand = (~pool_exp) & (pool_id < n)
         cand_d = torch.where(cand, pool_d, inf)
         beam_d, beam_idx = torch.sort(cand_d, dim=1, stable=True)
@@ -385,6 +414,7 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         pool_exp.scatter_(1, beam_idx, pool_exp.gather(1, beam_idx) | slot_live)
 
         # --- dense [B, W*M] neighbour tile ---------------------------------
+        ph.to("hop.tile")
         cl = c.long()
         nbrs = arrays["neighbors"][cl].reshape(B, L)                  # [B, L]
         # stored edge distances may be bf16; the estimate math is f32
@@ -413,6 +443,7 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
             bound2 = 2.0 * upper[:, None] + nx * nx + (nq * nq)[:, None] - 2.0
 
         # --- router: estimate + prune (no neighbour row is read here) ------
+        ph.to("hop.route")
         if prunes:
             try_prune = first & (st == STATUS_UNVISITED) & pool_full[:, None]
             if W > 1 and cfg.beam_prune == "best":
@@ -450,6 +481,7 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
             compute = first & ~prune
 
         # --- distances: stage-1 quantized estimate (sq8) or exact fp32 -----
+        ph.to("hop.dist")
         if sq8_on:
             # stage 1: uint8 code rows -> estimate + lower bound for every
             # surviving lane; no fp32 row is read here (that is stage 2)
@@ -497,6 +529,7 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
 
         # --- status scatter: unchanged lanes write the pad column's own
         # value to the pad column, so the scatter stays deterministic -------
+        ph.to("hop.status")
         change = compute | prune
         if rt.permanent:
             new_st = torch.full_like(st, STATUS_VISITED)
@@ -508,6 +541,7 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
                         torch.where(change, new_st, pad_val))
 
         # --- pool merge (merge-then-truncate == evolving-bound insertion) --
+        ph.to("hop.merge")
         new_id = torch.where(insert, nbrs, n)
         new_apx = insert if sq8_on else torch.zeros_like(insert)
         if kernels:
@@ -538,7 +572,9 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
 
         hops = hops + slot_live.sum(1, dtype=_I32)
         iters += 1
+    trace.hop_loop(iters, time.perf_counter_ns() - t_loop - sync_ns, sync_ns)
 
+    ph.to("search.final")
     if tombstone is not None:
         # emission-time masking: dead entries routed normally; here they
         # collapse to the pad sentinel, so neither the final rerank nor the
@@ -563,6 +599,7 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
             torch.where(valid, a, 0)
             for a in (dcalls, ecalls, rrcalls, sqcalls, hops))
         extras = {k: torch.where(valid, v, 0) for k, v in extras.items()}
+    ph.close()
     return SearchResult(ids=pool_id, dists=pool_d, dist_calls=dcalls,
                         est_calls=ecalls, hops=hops, iters=iters,
                         rerank_calls=rrcalls, sq8_calls=sqcalls, extra=extras)
@@ -619,7 +656,9 @@ class SearchEngine:
     built), each batch shape it runs for the first time, and each kernel
     library its calls loaded first in the process (``build.load``, which
     may run ``nvcc``).  ``first_uses()`` reads it, where the JAX package
-    reads a jitted function's ``_cache_size()``.
+    reads a jitted function's ``_cache_size()``.  Each call is also one
+    record of ``repro_torch.trace``'s call log (``trace.call``), marked
+    ``first_use`` by the same test.
     """
 
     def __init__(self, g: GraphIndex, arrays, cfg: SearchSpec,
@@ -637,16 +676,22 @@ class SearchEngine:
         if (tombstone is not None) != self.tombstones:
             raise TypeError("a tombstones=True engine takes a tombstone "
                             "mask, any other engine none")
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.dev)
-        if tombstone is not None:
-            tombstone = torch.as_tensor(tombstone, device=self.dev)
-        loads0 = build.first_loads_on_this_thread()
-        res = _search_batch(self.arrays, q, cos_theta, self.cfg,
-                            tombstone=tombstone)
-        loads = build.first_loads_on_this_thread() - loads0
-        with self._lock:
-            self._shapes.add(tuple(q.shape))
-            self._loads += loads
+        with trace.call() as rec:
+            with trace.span("search.init"):
+                q = torch.as_tensor(queries, dtype=torch.float32,
+                                    device=self.dev)
+                if tombstone is not None:
+                    tombstone = torch.as_tensor(tombstone, device=self.dev)
+            loads0 = build.first_loads_on_this_thread()
+            res = _search_batch(self.arrays, q, cos_theta, self.cfg,
+                                tombstone=tombstone)
+            loads = build.first_loads_on_this_thread() - loads0
+            shape = tuple(q.shape)
+            with self._lock:
+                rec.first_use = loads > 0 or shape not in self._shapes
+                self._shapes.add(shape)
+                self._loads += loads
+            rec.rows = shape[0]
         return res
 
     def first_uses(self) -> int:
