@@ -257,6 +257,7 @@ the ground truth are fp32 matrix products.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -288,6 +289,8 @@ FINGER_SPECS = {"finger_W1": dict(k=10, efs=100, router="finger",
                                   beam_width=4)}
 # NSG at the paper's widths (§5.1: R=70, C=500, L=60), K-NN graph k=64
 NSG_KW = dict(r=70, c=500, l=60, knn_k=64)
+# the rows a batch of the NSG build's acquisition (build_nsg's default)
+NSG_ACQUIRE_BATCH = 512
 # nodes whose MRNG selection on the card is held against the NumPy loop
 MRNG_SAMPLE = 2000
 # the retrieval example's spec (k=100, efs=2k) and its beam forms
@@ -1076,6 +1079,7 @@ def run_engine(idx, queries, spec):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     ids, stats = [], []
+    t0_ns = time.perf_counter_ns()
     t0 = time.perf_counter()
     for s in range(0, len(queries), BATCH):
         i, _, st = idx.search(queries[s: s + BATCH], spec)
@@ -1085,8 +1089,23 @@ def run_engine(idx, queries, spec):
     launches = dict(ops.LAUNCHES)
     return {"ids": np.concatenate(ids), "stats": SearchStats.merge(stats),
             "iters": [int(s.iters) for s in stats], "secs": secs,
-            "launches": launches,
+            "launches": launches, "graph": graph_engagement(t0_ns),
             "max_memory_allocated": int(torch.cuda.max_memory_allocated())}
+
+
+def graph_engagement(t0_ns):
+    """The hop graph's engagement over the engine calls since ``t0_ns``
+    (``trace.calls``): iterations, replays, calls, first uses, and the
+    later calls that ran an iteration eagerly (each should replay all)."""
+    from repro_torch import trace
+    calls = [c for c in trace.calls() if c.start_ns >= t0_ns]
+    return {"iters": sum(c.iters for c in calls),
+            "graph_iters": sum(c.graph_iters for c in calls),
+            "calls": len(calls),
+            "first_uses": sum(c.first_use for c in calls),
+            "later_calls_not_all_replays": sum(
+                not c.first_use and c.graph_iters != c.iters
+                for c in calls)}
 
 
 def expected_kernels(engine, kw):
@@ -1131,7 +1150,7 @@ def compare_engines(phase, name, kw, runs, gt, nq, main_launches, k=10,
         row = {"qps": nq / r["secs"], "secs": r["secs"],
                rk: recall_at_k(r["ids"], gt, k),
                "iters_per_batch": float(np.mean(r["iters"])),
-               "launches": r["launches"],
+               "launches": r["launches"], "graph": r["graph"],
                "max_memory_allocated": r["max_memory_allocated"]}
         row.update({c: float(np.mean(getattr(st, c))) for c in COUNTERS})
         row.update({c: float(np.mean(v)) for c, v in st.extra.items()})
@@ -1151,6 +1170,10 @@ def compare_engines(phase, name, kw, runs, gt, nq, main_launches, k=10,
     emit(out)
     ref = out["torch"]
     for eng, r in runs.items():
+        g = r["graph"]
+        check(g["calls"] == len(r["iters"])
+              and g["later_calls_not_all_replays"] == 0,
+              f"{phase}/{name}: the {eng} engine's hop graph: {g}")
         got = {k for k, v in r["launches"].items() if v > 0}
         want = expected_kernels(eng, kw)
         check(got == want, f"{phase}/{name}: the {eng} engine launched "
@@ -1173,8 +1196,8 @@ def compare_engines(phase, name, kw, runs, gt, nq, main_launches, k=10,
 def search_phase(phase, idx, queries, gt, main_launches, captures=None,
                  specs=SPECS, unfused_specs=UNFUSED_SPECS, k=10):
     """Every spec of ``specs`` on its engines; ``captures`` maps (spec,
-    engine) to a CaptureInputs run around that search."""
-    import contextlib
+    engine) to a CaptureInputs run around an eager pass of its first
+    batch, before the counted run."""
     import dataclasses
     from repro_torch.core.search import build_search_fn
     from repro_torch.core.spec import SearchSpec
@@ -1190,8 +1213,11 @@ def search_phase(phase, idx, queries, gt, main_launches, captures=None,
                 use_hierarchy=idx.graph.upper_neighbors is not None),
                 device=idx.device)
             capture = (captures or {}).get((name, engine))
-            with capture if capture is not None else contextlib.nullcontext():
-                runs[engine] = run_engine(idx, queries, spec)
+            if capture is not None:
+                with capture, eager_twin(kw) as twin:
+                    idx.search(queries[:BATCH],
+                               SearchSpec(engine=engine, **twin))
+            runs[engine] = run_engine(idx, queries, spec)
         compare_engines(phase, name, kw, runs, gt, len(queries),
                         main_launches, k=k, n_base=idx.graph.n)
 
@@ -1346,21 +1372,36 @@ def nsg_phase(ds, gt, main_launches, capture, rng):
     import numpy as np
     import torch
     from repro_torch.core.index import AnnIndex
+    from repro_torch.core.knn_graph import build_knn_graph
+    from repro_torch.core.nsg import acquire_candidates, acquisition_spec
     from repro_torch.core.spec import SearchSpec
     from repro_torch.kernels import ops
     sample = np.random.default_rng(7).choice(len(ds.base), MRNG_SAMPLE,
                                              replace=False)
+    # the acquisition's kernel inputs: its first batch searched eagerly on
+    # the build's own K-NN graph, under the build's spec and pool
+    knn = build_knn_graph(ds.base, k=NSG_KW["knn_k"], metric="l2")
+    pool = max(NSG_KW["l"], min(NSG_KW["c"], knn.n - 1))
+    with capture, eager_twin(dict(router="none", beam_width=4)) as twin:
+        acquire_candidates(knn, ds.base[:NSG_ACQUIRE_BATCH], acquisition_spec(
+            SearchSpec(**twin), pool, "l2"), NSG_ACQUIRE_BATCH)
+    del knn
     torch.cuda.synchronize()
     ops.reset_launch_counts()
+    t0_ns = time.perf_counter_ns()
     t0 = time.perf_counter()
-    with capture, PoolRecorder(sample) as pools:
+    with PoolRecorder(sample) as pools:
         idx = AnnIndex.build(ds.base, graph="nsg", **NSG_KW)
     torch.cuda.synchronize()
     build_secs = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
+    graph = graph_engagement(t0_ns)
     got = {k for k, v in launches.items() if v}
     check(got == {"fused_expand", "pool_merge"},
           f"nsg: the build launched {launches}")
+    check(graph["calls"] == -(-len(ds.base) // NSG_ACQUIRE_BATCH)
+          and graph["later_calls_not_all_replays"] == 0,
+          f"nsg: the acquisition's hop graph: {graph}")
     for k, v in launches.items():
         main_launches[k] = main_launches.get(k, 0) + v
     g = idx.graph
@@ -1377,7 +1418,7 @@ def nsg_phase(ds, gt, main_launches, capture, rng):
                         ("knn", "acquire", "mrng", "tree")},
           "orphans": st["orphans"], "max_degree": int(deg.max()),
           "mean_degree": float(deg.mean()), "padded_degree": g.max_degree,
-          "build_launches": launches,
+          "build_launches": launches, "build_graph": graph,
           "theta_star": idx.profile.theta_star, "mrng": mrng,
           "cuts": "n 1M (the paper's SIFT) -> 30k (50k until the lm "
                   "phase came), the hnsw phase's dataset, so both graphs "
@@ -1579,8 +1620,12 @@ def serve_phase(idx, queries, main_launches):
     records.clear()
 
     # 2) a serve.dispatch fault fails its own batch only: three requests
-    # in three cos_theta groups make three dispatches, the second faulted
+    # in three cos_theta groups make three dispatches, the second faulted;
+    # on the card each cos_theta the bucket has not run captures its hop
+    # graph on the request path, a first use
     ops.reset_launch_counts()
+    before_fault = {key: fe._session(s).engine.compile_count()
+                    for key, s in specs.items()}
     fault_futs = [fe.submit(queries[:3], cos_theta=ct)
                   for ct in (0.9, 0.8, 0.7)]
     fault.arm("serve.dispatch", kind="raise", hits={1})
@@ -1598,6 +1643,12 @@ def serve_phase(idx, queries, main_launches):
     check(n_fault_dispatches == 3 and outcome == ["ok", "fault", "ok"],
           f"serve: the armed dispatch fault gave {outcome} over "
           f"{n_fault_dispatches} dispatches")
+    fault_uses = {key: fe._session(s).engine.compile_count()
+                  - before_fault[key] for key, s in specs.items()}
+    check(fault_uses == {key: 2 if s is base else 0
+                         for key, s in specs.items()},
+          f"serve: the two cos_theta values searched made {fault_uses} "
+          "first uses (one capture each, in the active session)")
     records.clear()
     sync(dev)
     launches["dispatch_fault"] = dict(ops.LAUNCHES)
@@ -1663,12 +1714,17 @@ def serve_phase(idx, queries, main_launches):
           "launches": launches, "dispatch_fault": outcome,
           "requests_unequal_to_direct": {"flush": bad_flush[:5],
                                          "worker": bad_worker[:5]},
-          "recompiles_after_warmup": summ["recompiles_after_warmup"]})
+          "recompiles_after_warmup": summ["recompiles_after_warmup"],
+          "dispatch_fault_first_uses": fault_uses})
     check(not bad_flush and not bad_worker,
           f"serve: {len(bad_flush)} flushed and {len(bad_worker)} worker "
           "requests differ from a direct search of their rows")
-    check(summ["recompiles_after_warmup"] == 0 and after == warm,
-          f"serve: first uses on the request path ({warm} -> {after})")
+    # the ragged streams pay none: the only first uses after warmup are
+    # the fault part's two captures
+    check(summ["recompiles_after_warmup"] == sum(fault_uses.values())
+          and all(after[key] - fault_uses[key] == warm[key] for key in warm),
+          f"serve: first uses on the request path ({warm} -> {after}, "
+          f"{fault_uses} of them the fault part's)")
     check(summ["requests"]["served"] == 2 * len(direct) + 2
           and summ["requests"]["failed"] == 1, f"serve: {summ['requests']}")
 
@@ -2088,18 +2144,25 @@ def sharded_runs(idx, queries, gt, main_launches):
     bit-equal to its plain version on the inputs the run captured."""
     import numpy as np
     import torch
+    from repro_torch import trace
     from repro_torch.core.spec import SearchSpec
     from repro_torch.data.vectors import recall_at_k
     from repro_torch.kernels import ops
     out, runs, checked = {}, {}, []
+    shards = len(idx.mesh.devices)
     for name, engine in SHARDED_RUNS:
         spec = SearchSpec(engine=engine, **SPECS[name])
         idx.search(queries[:BATCH], spec)       # the step's setup, off the clock
         capture = CaptureInputs()
+        if engine != "torch":
+            with capture, eager_twin(SPECS[name]) as twin:
+                idx.search(queries[:BATCH],
+                           SearchSpec(engine=engine, **twin))
         torch.cuda.synchronize()
         ops.reset_launch_counts()
         t0 = time.perf_counter()
-        with capture:
+        # one call record over every shard's hop loops (trace.hop_loop)
+        with trace.call() as rec:
             ids, dists, stats, kernels = batched(idx.search, queries, spec)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
@@ -2108,6 +2171,11 @@ def sharded_runs(idx, queries, gt, main_launches):
         check(all(k == want for k in kernels),
               f"sharded/{name}: a {engine} batch launched "
               f"{sorted(set().union(*kernels))}, expected {sorted(want)}")
+        # every loop replays but a shard's first on the last, shorter batch
+        eager = rec.iters - rec.graph_iters
+        check(eager <= shards * (len(queries) % BATCH != 0),
+              f"sharded/{name}: {engine} ran {eager} of {rec.iters} hop "
+              "iterations eagerly")
         if engine != "torch":
             for k, v in launches.items():
                 main_launches[k] = main_launches.get(k, 0) + v
@@ -2119,7 +2187,8 @@ def sharded_runs(idx, queries, gt, main_launches):
             "recall@10": recall_at_k(ids, gt, 10),
             "iters_per_batch": float(np.mean([s.iters for s in stats])),
             "dist_calls_per_query": sum(int(s.dist_calls) for s in stats)
-            / len(queries), "launches": launches}
+            / len(queries), "launches": launches,
+            "graph": {"iters": rec.iters, "graph_iters": rec.graph_iters}}
     for (name, engine), (ids, dists, st) in runs.items():
         if engine == "torch":
             continue
@@ -3727,7 +3796,9 @@ class CaptureInputs:
     lane width of its first argument, during a main-path run (the last call
     if there are fewer), for timing the kernels on real inputs.  Tensors of
     more than 2**24 elements (the vector and code tables) are kept by
-    reference: the search never writes them."""
+    reference: the search never writes them.  A replayed CUDA graph calls
+    no wrapper, so it wraps an eager pass of its own, off the counts and
+    the clock, under ``eager_twin``'s router; the counted run replays."""
 
     def __init__(self, nth: int = 30):
         self.nth = nth
@@ -3778,6 +3849,23 @@ class CaptureInputs:
         for w, f in self._orig.items():
             setattr(ops, w, f)
         return False
+
+
+@contextlib.contextmanager
+def eager_twin(kw):
+    """``kw`` with its router replaced by a copy that does not declare
+    itself ``graph_safe``, registered for the block: the same search, with
+    every iteration's kernels launched from Python, where a
+    ``CaptureInputs`` sees them."""
+    import dataclasses
+    from repro_torch.core import routers as R
+    name = kw["router"] + ".eager"
+    R.register_router(dataclasses.replace(
+        R.get_router(kw["router"]), name=name, graph_safe=False))
+    try:
+        yield dict(kw, router=name)
+    finally:
+        R.unregister_router(name)
 
 
 KERNEL_FILES = {

@@ -9,7 +9,8 @@ than hand-maintained (``repro_torch.core.spec.is_request_only``):
 
 * ``"request"`` — changing the knob leaves the canonical spec unchanged
   (``k``, ``cos_theta``): it retunes instantly, no new engine, no
-  pre-warm;
+  pre-warm (on a CUDA device a new ``cos_theta`` captures each bucket's
+  hop graph once, on its first request);
 * ``"engine"``  — changing the knob changes the canonical spec
   (``efs``, ``beam_width``, ``estimate``, ``router``, ...): a switch
   creates a new engine session whose every bucket rung MUST be pre-warmed

@@ -87,6 +87,16 @@ class Router:
       extra_counters: names of per-router ``[B]`` int32 counters the
         ``estimate_rank`` hook returns; surfaced as ``SearchStats.extra``.
       companion_tables: keys ``prepare`` adds to the arrays cache.
+      graph_safe: ``estimate_rank`` waits on nothing from the device (no
+        host read of a tensor, no synchronisation) and reads only the
+        context's tensors and Python values, so the hop loop may capture
+        an iteration that calls it in a CUDA graph and replay it.  A router
+        that does not declare it runs every iteration eagerly.  The base
+        class leaves it False, as a hook written elsewhere may read the
+        device; ``EdgeAngleRouter``, ``FingerRouter`` and ``none`` declare
+        it.  A copy of one with ``graph_safe=False`` searches alike, with
+        every kernel launched from Python (``chip_smoke.py`` records the
+        kernels' inputs so).
     """
 
     name: str
@@ -97,6 +107,7 @@ class Router:
     kernel_estimate: bool = False
     extra_counters: Tuple[str, ...] = ()
     companion_tables: Tuple[str, ...] = ()
+    graph_safe: bool = False
 
     def cos_theta_eff(self, cos_theta):
         """The cos(theta) the edge-angle estimate uses."""
@@ -130,6 +141,7 @@ class EdgeAngleRouter(Router):
     """
 
     fixed_cos: Optional[float] = None
+    graph_safe: bool = True          # the estimate is tensor ops alone
 
     def cos_theta_eff(self, cos_theta):
         return self.fixed_cos if self.fixed_cos is not None else cos_theta
@@ -208,6 +220,7 @@ class FingerRouter(Router):
     """
 
     r_bits: int = 64
+    graph_safe: bool = True          # the estimate is tensor ops alone
 
     def prepare(self, g, arrays):
         return ensure_finger_arrays(g, arrays, r_bits=self.r_bits)
@@ -281,7 +294,7 @@ def available_routers() -> Tuple[str, ...]:
     return tuple(_REGISTRY)
 
 
-register_router(Router(name="none", prunes=False))
+register_router(Router(name="none", prunes=False, graph_safe=True))
 register_router(EdgeAngleRouter(name="crouting", prunes=True,
                                 kernel_estimate=True))
 register_router(EdgeAngleRouter(name="crouting_o", prunes=True,

@@ -6,7 +6,7 @@ restructured as ONE loop over a whole query batch (DESIGN.md §3).
 * The candidate queue C and result queue T collapse into one sorted pool of
   size ``efs`` with per-slot expanded flags.
 * Per-node state is a dense ``[B, n+1]`` uint8 status array (0 unvisited /
-  1 visited / 2 pruned), allocated once per batch.
+  1 visited / 2 pruned), zeroed once per batch.
 * Each iteration picks the best W (``SearchSpec.beam_width``) unexpanded
   pool entries per query, gathers their adjacency into a ``[B, W*M]``
   neighbour tile, lets the router prune lanes on stored edge distances,
@@ -34,11 +34,15 @@ entry is picked for expansion, and for every approximate entry left in the
 pool at the end.  ``SearchResult.rerank_calls`` counts stage-2 evaluations
 (they also count as ``dist_calls``), ``sq8_calls`` stage-1 evaluations.
 
-The loop runs eagerly: its condition (some query not done, fewer than
-``max_hops`` iterations) is read on the host once per iteration, and
-``SearchResult.iters`` reports how many there were.  ``repro_torch.trace``
-logs each engine call's loop time, split into that read's wait and the
-rest, and names the loop's phases as spans.
+The loop's condition (some query not done, fewer than ``max_hops``
+iterations) is read on the host once per iteration, and
+``SearchResult.iters`` reports how many there were.  On a CUDA device a
+``SearchEngine`` captures the iteration's ~160 launches as one CUDA graph
+for each batch shape and replays it once an iteration (``HopGraphs``);
+elsewhere, and for a router that does not declare itself ``graph_safe``,
+the same iteration runs eagerly.  ``repro_torch.trace`` logs each engine
+call's loop time, split into that read's wait and the rest, and how many
+iterations were replays, and names the loop's phases as spans.
 
 Translation notes against the JAX engine:
 
@@ -69,9 +73,11 @@ id N and distance +inf.
 """
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 import weakref
+from collections import OrderedDict
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -105,6 +111,10 @@ class SearchResult(NamedTuple):
     # per-router [B] int32 counters (Router.extra_counters), e.g. finger's
     # finger_est_calls
     extra: Dict[str, torch.Tensor]
+
+
+_RESULT_TENSORS = ("ids", "dists", "dist_calls", "est_calls", "hops",
+                   "rerank_calls", "sq8_calls")
 
 
 def graph_device_arrays(g: GraphIndex, device: DeviceLike = None) -> Dict[str, Any]:
@@ -265,120 +275,129 @@ def _lexsort_dist_id(d, i):
     return o1.gather(1, o2)
 
 
-def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
-                  tombstone=None) -> SearchResult:
-    """Whole-batch Algorithm 1/2 with W-wide beam expansion per iteration.
+class _HopState:
+    """What a hop iteration reads and writes besides the graph's arrays:
+    the queries and their norms, the pool (ids, ranking distances,
+    expanded and approximate flags), the ``[B, n+1]`` status, the done
+    flags and the counters.
 
-    ``valid`` ([B] bool, optional) marks the real query lanes of a padded
-    batch: padded lanes start done, never expand a node, and count zero in
-    every counter.  ``tombstone`` ([n+1] bool, pad row False, optional)
-    marks deleted nodes: they keep routing, but are masked out of the
-    result pool after the loop (id -> n, dist -> +inf), before the sq8
-    path's final rerank, then re-sorted.
+    ``_Hop.step`` writes every new value into these tensors, so they keep
+    their addresses: a CUDA graph captured on them replays on whatever
+    ``start`` wrote there for the next call."""
 
-    Its phases are spans of ``repro_torch.trace``: ``search.init``, then an
-    iteration ``hop`` each with ``hop.sync`` (the one host sync),
-    ``hop.beam``, ``hop.tile``, ``hop.route``, ``hop.dist``, ``hop.status``
-    and ``hop.merge``, then ``search.final``.  The loop's host time, split
-    into the time blocked in the sync and the rest, adds to the engine call
-    in progress (``trace.hop_loop``).
-    """
-    metric, efs, n = cfg.metric, cfg.efs, arrays["n"]
-    W, engine = cfg.beam_width, cfg.engine
-    rt = get_router(cfg.router)
-    if not 1 <= W <= efs:
-        raise ValueError("beam_width must be in [1, efs]")
-    if cfg.estimate in ("angle", "both") and not rt.prunes:
-        raise ValueError(f"estimate={cfg.estimate!r} needs a pruning router, "
-                         f"got {cfg.router!r}")
-    sq8_on = cfg.estimate in ("sq8", "both")
-    kernels = engine in ("fused", "unfused")
-    if kernels and n >= 2 ** 29:
-        raise ValueError("the kernel engines encode ids as id*4+flags in "
-                         "int32: shard below 2^29 vectors or use "
-                         "engine='torch'")
-    ph = trace.phases()
-    ph.to("search.init")
-    dev = queries.device
-    vecs, norms = arrays["vectors"], arrays["norms"]
-    queries = queries.to(torch.float32).contiguous()
-    # the engine's cos(theta*) is an f32 value, as the JAX engine's traced
-    # f32 scalar is
-    cos_theta = float(np.float32(cos_theta))
-    B = queries.shape[0]
-    M = arrays["neighbors"].shape[1]
-    L = W * M
-    rows = torch.arange(B, device=dev)
-    inf = float("inf")
+    def __init__(self, B, d, efs, n, L, M, extra_names, dev):
+        def empty(*shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device=dev)
+        self.queries, self.nq = empty(B, d), empty(B)
+        # the lanes of beam slot 0 in the [B, W*M] tile
+        self.best_slot = torch.arange(L, device=dev)[None, :] < M
+        self.pool_d = empty(B, efs)
+        self.pool_id = empty(B, efs, dtype=_I32)
+        self.pool_exp = empty(B, efs, dtype=torch.bool)
+        self.pool_apx = empty(B, efs, dtype=torch.bool)
+        self.status = empty(B, n + 1, dtype=torch.uint8)
+        self.done = empty(B, dtype=torch.bool)
+        (self.dcalls, self.ecalls, self.rrcalls, self.sqcalls,
+         self.hops) = (empty(B, dtype=_I32) for _ in range(5))
+        # per-router counters (registry-declared, see Router.extra_counters)
+        self.extras = {name: empty(B, dtype=_I32) for name in extra_names}
 
-    nq = (torch.linalg.norm(queries, dim=1) if metric != "l2"
-          else torch.ones((B,), dtype=torch.float32, device=dev))
+    @staticmethod
+    def nbytes(B, d, efs, n, L, M, extra_names) -> int:
+        """The bytes ``_HopState(B, d, efs, n, L, M, extra_names, dev)``
+        allocates, known before it does."""
+        return (B * (n + 1) + B * (4 * d + 4 + 10 * efs + 1)
+                + 4 * B * (5 + len(extra_names)) + L)
 
-    def _exact_rerank(ids, mask):
+    def start(self, queries, nq, entry, d_entry, calls0, valid, n):
+        """A call's starting values, written in place: the pool holds
+        ``entry`` [B] (at ``d_entry``), which alone is VISITED; the
+        distance count is ``calls0``; padded lanes (``valid`` False) are
+        born done and count zero."""
+        self.queries.copy_(queries)
+        self.nq.copy_(nq)
+        self.pool_d.fill_(float("inf"))
+        self.pool_d[:, 0] = d_entry
+        self.pool_id.fill_(n)
+        self.pool_id[:, 0] = entry
+        self.pool_exp.zero_()
+        self.pool_apx.zero_()
+        self.status.zero_()
+        rows = torch.arange(entry.shape[0], device=entry.device)
+        self.status[rows, entry.long()] = STATUS_VISITED
+        if valid is None:
+            self.done.zero_()
+            self.dcalls.copy_(calls0)
+        else:
+            torch.logical_not(valid, out=self.done)
+            self.dcalls.copy_(torch.where(valid, calls0, 0))
+        for t in (self.ecalls, self.rrcalls, self.sqcalls, self.hops,
+                  *self.extras.values()):
+            t.zero_()
+
+
+class _Hop:
+    """One hop iteration, fixed by the graph's arrays, the spec, the
+    router and cos(theta*): ``step(s, ph)`` advances the state ``s`` by
+    one iteration in place.
+
+    Which operations it issues depends on those alone, never on the data,
+    and it reads nothing back to the host; so the operations of one call
+    captured as a CUDA graph are those of every later call on the same
+    state (``_HopGraph``)."""
+
+    def __init__(self, arrays, cfg: SearchSpec, rt, cos_theta: float):
+        self.arrays, self.cfg, self.rt = arrays, cfg, rt
+        self.cos_theta = cos_theta
+        self.n = arrays["n"]
+        self.M = arrays["neighbors"].shape[1]
+        self.L = cfg.beam_width * self.M
+        self.sq8_on = cfg.estimate in ("sq8", "both")
+        self.kernels = cfg.engine in ("fused", "unfused")
+        self.ct_eff = rt.cos_theta_eff(cos_theta)
+        self.rescue = (cfg.beam_width > 1 and rt.prunes and rt.revisit_pruned
+                       and not rt.permanent)
+        # with sq8 the fused fp32 kernel never runs, so the prune decision
+        # is taken outside it (the router hook or crouting_prune: the same
+        # f32 math)
+        self.kernel_prunes = (cfg.engine == "fused" and rt.kernel_estimate
+                              and not self.rescue and not self.sq8_on)
+
+    def graph_key(self):
+        """What a captured iteration bakes in besides the state: the spec,
+        the router, cos(theta*) and the address and shape of each of the
+        graph's arrays (``ensure_sq8_arrays``, a router's ``prepare`` or a
+        mutation may replace one)."""
+        return (self.cfg, self.rt, self.cos_theta, tuple(
+            (k, v.data_ptr(), tuple(v.shape), v.dtype)
+            for k, v in sorted(self.arrays.items())
+            if isinstance(v, torch.Tensor)))
+
+    def rerank(self, s: _HopState, ids, mask):
         """Stage 2: exact ranking distances for the pool entries in
         ``mask``; the fp32 rows are read here and only here on the sq8
         path, and other lanes report +inf.  ``ids`` lie in [0, n] (n: the
         pad row)."""
-        if kernels:
+        vecs, n = self.arrays["vectors"], self.n
+        if self.kernels:
             # the kernel takes the mask as it is and skips the other lanes
-            eu2 = ops.gather_distance_where(ids, mask, queries, vecs)
+            eu2 = ops.gather_distance_where(ids, mask, s.queries, vecs)
         else:
-            eu2 = l2sq_rows(queries, vecs[torch.where(mask, ids, n).long()])
-        r = _eu2_to_rank(eu2, nq[:, None], norms[ids.long()], metric)
-        return torch.where(mask, r, inf)
+            eu2 = l2sq_rows(s.queries, vecs[torch.where(mask, ids, n).long()])
+        r = _eu2_to_rank(eu2, s.nq[:, None], self.arrays["norms"][ids.long()],
+                         self.cfg.metric)
+        return torch.where(mask, r, float("inf"))
 
-    if cfg.use_hierarchy:
-        entry, d_entry, calls0 = _descend(arrays, queries, metric)
-    else:
-        entry = torch.full((B,), arrays["entry"], dtype=_I32, device=dev)
-        d_entry = _rank_tile(queries, vecs[entry.long()][:, None, :], metric)[:, 0]
-        calls0 = torch.ones((B,), dtype=_I32, device=dev)
-
-    if valid is None:
-        done = torch.zeros((B,), dtype=torch.bool, device=dev)
-    else:
-        valid = valid.to(device=dev, dtype=torch.bool)
-        done = ~valid                      # padded lanes are born done
-        calls0 = torch.where(valid, calls0, 0)
-
-    pool_d = torch.full((B, efs), inf, dtype=torch.float32, device=dev)
-    pool_d[:, 0] = d_entry
-    pool_id = torch.full((B, efs), n, dtype=_I32, device=dev)
-    pool_id[:, 0] = entry
-    pool_exp = torch.zeros((B, efs), dtype=torch.bool, device=dev)
-    pool_apx = torch.zeros((B, efs), dtype=torch.bool, device=dev)
-    status = torch.zeros((B, n + 1), dtype=torch.uint8, device=dev)
-    status[rows, entry.long()] = STATUS_VISITED
-    dcalls = calls0
-    ecalls = torch.zeros((B,), dtype=_I32, device=dev)
-    rrcalls = torch.zeros((B,), dtype=_I32, device=dev)
-    sqcalls = torch.zeros((B,), dtype=_I32, device=dev)
-    # per-router counters (registry-declared, see Router.extra_counters)
-    extras = {name: torch.zeros((B,), dtype=_I32, device=dev)
-              for name in rt.extra_counters}
-    hops = torch.zeros((B,), dtype=_I32, device=dev)
-    iters = 0
-
-    prunes = rt.prunes
-    ct_eff = rt.cos_theta_eff(cos_theta)
-    rescue = W > 1 and prunes and rt.revisit_pruned and not rt.permanent
-    # with sq8 the fused fp32 kernel never runs, so the prune decision is
-    # taken outside it (the router hook or crouting_prune: the same f32 math)
-    kernel_prunes = (engine == "fused" and rt.kernel_estimate and not rescue
-                     and not sq8_on)
-    best_slot = torch.arange(L, device=dev)[None, :] < M
-
-    t_loop, sync_ns = time.perf_counter_ns(), 0
-    while iters < cfg.max_hops:
-        ph.hop()
-        # --- the iteration's one host sync: is every query done? ----------
-        ph.to("hop.sync")
-        all_done = done.all()
-        t0 = time.perf_counter_ns()
-        finished = bool(all_done)
-        sync_ns += time.perf_counter_ns() - t0
-        if finished:
-            break
+    def step(self, s: _HopState, ph) -> None:
+        cfg, arrays, rt = self.cfg, self.arrays, self.rt
+        metric, efs, n = cfg.metric, cfg.efs, self.n
+        W, M, L, engine = cfg.beam_width, self.M, self.L, cfg.engine
+        B = s.done.shape[0]
+        queries, nq = s.queries, s.nq
+        vecs, norms = arrays["vectors"], arrays["norms"]
+        pool_d, pool_id, pool_exp, pool_apx = (s.pool_d, s.pool_id,
+                                               s.pool_exp, s.pool_apx)
+        inf = float("inf")
 
         # --- beam selection: best W unexpanded pool entries per query -----
         ph.to("hop.beam")
@@ -388,29 +407,29 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         beam_d, beam_idx = beam_d[:, :W], beam_idx[:, :W]
         pool_full = pool_id[:, efs - 1] < n
         upper = torch.where(pool_full, pool_d[:, efs - 1], inf)      # [B]
-        active = (~done) & (hops < cfg.max_hops)
+        active = (~s.done) & (s.hops < cfg.max_hops)
         slot_live = torch.isfinite(beam_d) & (beam_d <= upper[:, None]) \
             & active[:, None]                                         # [B, W]
         # keep the per-query hop budget exact
-        budget = cfg.max_hops - hops
+        budget = cfg.max_hops - s.hops
         slot_live = slot_live & (torch.cumsum(slot_live, dim=1, dtype=_I32)
                                  <= budget[:, None])
-        done = done | ~slot_live.any(dim=1)
+        s.done |= ~slot_live.any(dim=1)
 
         c = torch.where(slot_live, pool_id.gather(1, beam_idx), n)    # [B, W]
         dc = pool_d.gather(1, beam_idx)                               # [B, W]
-        if sq8_on:
+        if self.sq8_on:
             # stage-2 rerank at expansion: an approximate entry picked for
             # the beam gets its exact distance (and loses its flag) before
             # that distance is used as d(c, q) for the tile's estimates
             apx = pool_apx.gather(1, beam_idx)
             sel_apx = apx & slot_live
-            dc = torch.where(sel_apx, _exact_rerank(c, sel_apx), dc)
+            dc = torch.where(sel_apx, self.rerank(s, c, sel_apx), dc)
             pool_d.scatter_(1, beam_idx, dc)
             pool_apx.scatter_(1, beam_idx, apx & ~sel_apx)
             nrr = sel_apx.sum(1, dtype=_I32)
-            rrcalls = rrcalls + nrr
-            dcalls = dcalls + nrr
+            s.rrcalls += nrr
+            s.dcalls += nrr
         pool_exp.scatter_(1, beam_idx, pool_exp.gather(1, beam_idx) | slot_live)
 
         # --- dense [B, W*M] neighbour tile ---------------------------------
@@ -420,7 +439,7 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         # stored edge distances may be bf16; the estimate math is f32
         ed = arrays["edge_eu"][cl].to(torch.float32).reshape(B, L)
         nbl = nbrs.long()
-        st = status.gather(1, nbl)                                    # [B, L]
+        st = s.status.gather(1, nbl)                                  # [B, L]
         lane_live = slot_live[:, :, None].expand(B, W, M).reshape(B, L)
         lane_ok = (nbrs < n) & (st != STATUS_VISITED) & lane_live
         if not rt.revisit_pruned:
@@ -444,33 +463,35 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
 
         # --- router: estimate + prune (no neighbour row is read here) ------
         ph.to("hop.route")
-        if prunes:
+        if rt.prunes:
             try_prune = first & (st == STATUS_UNVISITED) & pool_full[:, None]
             if W > 1 and cfg.beam_prune == "best":
                 # slot 0 is the node sequential search would expand now;
                 # only its lanes run the estimate test
-                try_prune = try_prune & best_slot
+                try_prune = try_prune & s.best_slot
             if rt.counts_est:
-                ecalls = ecalls + try_prune.sum(1, dtype=_I32)
+                s.ecalls += try_prune.sum(1, dtype=_I32)
         else:
             try_prune = torch.zeros_like(first)
 
-        if not prunes or kernel_prunes:
+        if not rt.prunes or self.kernel_prunes:
             prune = torch.zeros_like(first)
         elif engine == "unfused" and rt.kernel_estimate:
             prune = ops.crouting_prune(ed, dcq_w, bound2, try_prune,
-                                       ct_eff)[1]
+                                       self.ct_eff)[1]
         else:
             ctx = RouterContext(
                 arrays=arrays, queries=queries, nq=nq, c=c, dc=dc, nbrs=nbrs,
                 ed=ed, dcq=dcq_w.reshape(B, L), nx=nx, try_prune=try_prune,
-                upper=upper, cos_theta=cos_theta, metric=metric, n=n,
+                upper=upper, cos_theta=self.cos_theta, metric=metric, n=n,
                 beam_width=W, max_degree=M)
             est_rank, extra_inc = rt.estimate_rank(ctx)
             prune = try_prune & (est_rank >= upper[:, None])
-            extras = {k: v + extra_inc.get(k, 0) for k, v in extras.items()}
+            for k, v in s.extras.items():
+                if k in extra_inc:
+                    v += extra_inc[k]
 
-        if rescue:
+        if self.rescue:
             # within-tile error correction (paper Alg. 2): a second valid
             # lane of a pruned id computes, and the id ends VISITED
             rescued, prune_kept = _rescue_pruned_duplicates(dd_order, dd_keys,
@@ -482,12 +503,12 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
 
         # --- distances: stage-1 quantized estimate (sq8) or exact fp32 -----
         ph.to("hop.dist")
-        if sq8_on:
+        if self.sq8_on:
             # stage 1: uint8 code rows -> estimate + lower bound for every
             # surviving lane; no fp32 row is read here (that is stage 2)
             sq8_args = (arrays["sq8_codes"], arrays["sq8_lo"],
                         arrays["sq8_scale"], arrays["sq8_eps"])
-            if kernels:
+            if self.kernels:
                 ad2, lb2 = ops.sq8_estimate(nbrs, queries, compute, *sq8_args)
             else:
                 codes, lo, scale, eps = sq8_args
@@ -504,17 +525,17 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
             sq8_skip = (compute & pool_full[:, None]
                         & (lb_rank >= upper[:, None]))
             insert = compute & ~sq8_skip
-            sqcalls = sqcalls + compute.sum(1, dtype=_I32)
+            s.sqcalls += compute.sum(1, dtype=_I32)
             new_d = torch.where(insert, ad_rank, inf)
         else:
             # exact fp32 distances (pruned/masked lanes load no row)
             if engine == "fused":
                 d2eu, prune_k = ops.fused_expand(
-                    nbrs, queries, ed, dcq_w, bound2, ct_eff, vecs,
+                    nbrs, queries, ed, dcq_w, bound2, self.ct_eff, vecs,
                     eval_mask=compute,
-                    prune_eligible=try_prune if kernel_prunes else None,
-                    prunes=kernel_prunes)
-                if kernel_prunes:
+                    prune_eligible=try_prune if self.kernel_prunes else None,
+                    prunes=self.kernel_prunes)
+                if self.kernel_prunes:
                     # the kernel made the prune decision and skipped those rows
                     prune = prune_k
                     compute = compute & ~prune
@@ -525,7 +546,7 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
             exact = _eu2_to_rank(d2eu, nq[:, None], nx, metric)
             insert = compute
             new_d = torch.where(compute, exact, inf)
-            dcalls = dcalls + compute.sum(1, dtype=_I32)
+            s.dcalls += compute.sum(1, dtype=_I32)
 
         # --- status scatter: unchanged lanes write the pad column's own
         # value to the pad column, so the scatter stays deterministic -------
@@ -536,15 +557,16 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
         else:
             new_st = torch.where(insert, STATUS_VISITED, STATUS_PRUNED
                                  ).to(torch.uint8)
-        pad_val = status[:, n:n + 1].expand(B, L)
-        status.scatter_(1, torch.where(change, nbl, n),
-                        torch.where(change, new_st, pad_val))
+        pad_val = s.status[:, n:n + 1].expand(B, L)
+        s.status.scatter_(1, torch.where(change, nbl, n),
+                          torch.where(change, new_st, pad_val))
 
-        # --- pool merge (merge-then-truncate == evolving-bound insertion) --
+        # --- pool merge (merge-then-truncate == evolving-bound insertion),
+        # written back into the state's pool ------------------------------
         ph.to("hop.merge")
         new_id = torch.where(insert, nbrs, n)
-        new_apx = insert if sq8_on else torch.zeros_like(insert)
-        if kernels:
+        new_apx = insert if self.sq8_on else torch.zeros_like(insert)
+        if self.kernels:
             # the approx and expanded flags ride the merge in the id's low
             # bits: id*4 + approx*2 + (not expanded).  Two entries can share
             # (dist, id) only when an adjacency row names a node twice (an
@@ -553,12 +575,13 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
             # set for an unexpanded entry the kernel orders them the same
             enc_pool = (pool_id * 4 + pool_apx.to(_I32) * 2
                         + (~pool_exp).to(_I32))
-            pool_d, enc = ops.pool_merge(pool_d, enc_pool, new_d,
-                                         new_id * 4 + new_apx.to(_I32) * 2
-                                         + 1)
-            pool_id = enc >> 2
-            pool_apx = (enc & 2) == 2
-            pool_exp = (enc & 1) == 0
+            merged_d, enc = ops.pool_merge(pool_d, enc_pool, new_d,
+                                           new_id * 4 + new_apx.to(_I32) * 2
+                                           + 1)
+            pool_d.copy_(merged_d)
+            torch.bitwise_right_shift(enc, 2, out=pool_id)
+            torch.eq(enc & 2, 2, out=pool_apx)
+            torch.eq(enc & 1, 0, out=pool_exp)
         else:
             md = torch.cat([pool_d, new_d], dim=1)
             mi = torch.cat([pool_id, new_id], dim=1)
@@ -566,43 +589,322 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
             ma = torch.cat([pool_apx, new_apx], dim=1)
             # lexicographic (dist, id): the kernel's tie-break
             order = _lexsort_dist_id(md, mi)[:, :efs]
-            pool_d, pool_id, pool_exp, pool_apx = (
-                md.gather(1, order), mi.gather(1, order),
-                me.gather(1, order), ma.gather(1, order))
+            for src, dst in ((md, pool_d), (mi, pool_id), (me, pool_exp),
+                             (ma, pool_apx)):
+                torch.gather(src, 1, order, out=dst)
 
-        hops = hops + slot_live.sum(1, dtype=_I32)
-        iters += 1
-    trace.hop_loop(iters, time.perf_counter_ns() - t_loop - sync_ns, sync_ns)
+        s.hops += slot_live.sum(1, dtype=_I32)
 
-    ph.to("search.final")
-    if tombstone is not None:
-        # emission-time masking: dead entries routed normally; here they
-        # collapse to the pad sentinel, so neither the final rerank nor the
-        # caller ever sees them
-        dead = tombstone.to(dev)[pool_id.long()]
-        pool_d = torch.where(dead, inf, pool_d)
-        pool_id = torch.where(dead, n, pool_id)
-    if sq8_on:
-        # stage-2 final rerank: every approximate survivor still in the pool
-        # gets its exact distance; entries displaced earlier never paid
-        # their fp32 row
-        mask = pool_apx & (pool_id < n)
-        pool_d = torch.where(mask, _exact_rerank(pool_id, mask), pool_d)
-        nrr = mask.sum(1, dtype=_I32)
-        rrcalls = rrcalls + nrr
-        dcalls = dcalls + nrr
-    if sq8_on or tombstone is not None:
-        order = _lexsort_dist_id(pool_d, pool_id)
-        pool_d, pool_id = pool_d.gather(1, order), pool_id.gather(1, order)
+
+class _HopGraph:
+    """One batch shape's hop state and the iterations captured on it.
+
+    ``graphs`` maps a ``_Hop.graph_key`` to a CUDA graph of one
+    ``_Hop.step`` on ``state`` captured for that key, never replayed for
+    another, and the kernel launches of one replay: ``HOP_GRAPH_KEYS`` of
+    them at most (cos(theta*) values, mostly), the least recently used
+    dropped first.  They share one memory pool, as one call at a time
+    replays them: the one that holds ``lock``.  ``nbytes`` is the state's
+    size (``_HopState.nbytes``) and ``used`` orders the slots of every
+    engine by their last use (``HopGraphs``)."""
+
+    def __init__(self, dev: torch.device, nbytes: int):
+        self.lock = threading.Lock()
+        self.dev, self.nbytes, self.used = dev, nbytes, 0
+        self.state: Optional[_HopState] = None
+        self.graphs: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self.pool = None
+        self.stream = None
+
+    def find(self, key) -> Optional[tuple]:
+        """The ``(graph, launches)`` captured for ``key``, or None."""
+        entry = self.graphs.get(key)
+        if entry is not None:
+            self.graphs.move_to_end(key)
+        return entry
+
+    def capture(self, hop: _Hop, key) -> tuple:
+        """Capture ``hop.step(self.state)`` for ``key``, which has then not
+        run: ``replay`` runs it."""
+        dev = self.state.done.device
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(dev)
+            self.pool = torch.cuda.graph_pool_handle()
+        self.stream.wait_stream(torch.cuda.current_stream(dev))
+        g = torch.cuda.CUDAGraph()
+        # capture on a stream of its own (the default stream cannot be
+        # captured); "thread_local": another thread's search is no error
+        with torch.cuda.stream(self.stream), \
+                ops.recording_launches() as launched:
+            g.capture_begin(pool=self.pool,
+                            capture_error_mode="thread_local")
+            try:
+                hop.step(self.state, trace.NO_PHASES)
+            finally:
+                g.capture_end()
+        entry = self.graphs[key] = (g, launched)
+        while len(self.graphs) > HOP_GRAPH_KEYS:
+            self.graphs.popitem(last=False)
+        trace.add("search.graph_captures", 1)
+        return entry
+
+    @staticmethod
+    def replay(entry: tuple) -> None:
+        graph, launches = entry
+        graph.replay()
+        ops.add_launches(launches)
+
+
+HOP_GRAPHS_MAX = 8           # batch shapes an engine keeps
+HOP_GRAPH_KEYS = 4           # graphs a batch shape keeps
+HOP_GRAPHS_MEMORY_SHARE = 0.25
+_SLOTS_LOCK = threading.Lock()      # guards every HopGraphs' slots
+_ALL_GRAPHS = weakref.WeakSet()     # guarded by: _SLOTS_LOCK
+_USES = itertools.count(1)
+
+
+def _memory_budget(dev: torch.device) -> int:
+    """The most the kept hop states of every engine on ``dev`` may hold:
+    ``HOP_GRAPHS_MEMORY_SHARE`` of its memory."""
+    return int(HOP_GRAPHS_MEMORY_SHARE
+               * torch.cuda.get_device_properties(dev).total_memory)
+
+
+def _make_room(dev: torch.device, nbytes: int) -> bool:
+    """Drop idle slots of any engine on ``dev``, least recently used first,
+    until ``nbytes`` more fit the budget; False if they do not (``_SLOTS_LOCK``
+    held)."""
+    budget = _memory_budget(dev)
+    if nbytes > budget:
+        return False
+    kept = [(slot.used, graphs, shape, slot)
+            # repolint: ignore[guarded-by] caller holds _SLOTS_LOCK
+            for graphs in list(_ALL_GRAPHS)
+            for shape, slot in graphs._slots.items() if slot.dev == dev]
+    held = sum(k[3].nbytes for k in kept)
+    for _, graphs, shape, slot in sorted(kept, key=lambda k: k[0]):
+        if held + nbytes <= budget:
+            break
+        if slot.lock.acquire(blocking=False):       # idle: drop it
+            del graphs._slots[shape]
+            held -= slot.nbytes
+            slot.lock.release()
+    return held + nbytes <= budget
+
+
+class HopGraphs:
+    """The captured hop iterations of one engine, a ``_HopGraph`` for each
+    batch shape, whose state holds the ``[B, n+1]`` status (10 GB at
+    B = 10,000 and n = 1M).  Two bounds, the least recently used slot
+    dropped first (its graphs and state are freed once no call holds
+    them): ``HOP_GRAPHS_MAX`` shapes an engine, and the states of every
+    engine on a device together within ``HOP_GRAPHS_MEMORY_SHARE`` of its
+    memory.  A shape whose state does not fit runs eagerly, on a state
+    freed after the call, as it would without graphs.
+
+    ``captures_on_this_thread`` counts the captures the calling thread
+    made through this engine's slots (``SearchEngine.first_uses``)."""
+
+    def __init__(self):
+        # under the module's _SLOTS_LOCK, which every engine's slots share
+        self._slots: "OrderedDict[tuple, _HopGraph]" = OrderedDict()
+        self._mine = threading.local()
+        with _SLOTS_LOCK:
+            _ALL_GRAPHS.add(self)
+
+    def __len__(self) -> int:
+        with _SLOTS_LOCK:
+            return len(self._slots)
+
+    def acquire(self, shape, dev: torch.device, nbytes: int
+                ) -> Optional[_HopGraph]:
+        """The slot of ``shape`` (a state of ``nbytes`` on ``dev``) with its
+        lock taken, or None: another call holds it (that call never waits,
+        and runs eagerly), or its state does not fit the budget."""
+        with _SLOTS_LOCK:
+            slot = self._slots.get(shape)
+            if slot is None:
+                if not _make_room(dev, nbytes):
+                    return None
+                slot = self._slots[shape] = _HopGraph(dev, nbytes)
+                while len(self._slots) > HOP_GRAPHS_MAX:
+                    self._slots.popitem(last=False)
+            else:
+                self._slots.move_to_end(shape)
+            slot.used = next(_USES)
+        return slot if slot.lock.acquire(blocking=False) else None
+
+    def captured(self) -> None:
+        self._mine.captures = self.captures_on_this_thread() + 1
+
+    def captures_on_this_thread(self) -> int:
+        return getattr(self._mine, "captures", 0)
+
+
+def _graph_slot(graphs: Optional[HopGraphs], dev: torch.device, rt,
+                shape, nbytes: int) -> Optional[_HopGraph]:
+    """The slot of ``shape`` in ``graphs``, its lock taken, where the hop
+    loop may capture and replay its iteration: on a CUDA device, under a
+    router that declares itself ``graph_safe``.  Else None: the loop runs
+    eagerly."""
+    if graphs is None or dev.type != "cuda" or not rt.graph_safe:
+        return None
+    return graphs.acquire(shape, dev, nbytes)
+
+
+def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
+                  tombstone=None, graphs: Optional[HopGraphs] = None
+                  ) -> SearchResult:
+    """Whole-batch Algorithm 1/2 with W-wide beam expansion per iteration.
+
+    ``valid`` ([B] bool, optional) marks the real query lanes of a padded
+    batch: padded lanes start done, never expand a node, and count zero in
+    every counter.  ``tombstone`` ([n+1] bool, pad row False, optional)
+    marks deleted nodes: they keep routing, but are masked out of the
+    result pool after the loop (id -> n, dist -> +inf), before the sq8
+    path's final rerank, then re-sorted.
+
+    Each iteration is ``_Hop.step`` on a ``_HopState``.  Given ``graphs``,
+    on a CUDA device and under a router that declares itself
+    ``graph_safe``, the state is the batch shape's own in ``graphs``: the
+    first iteration of a key (``_Hop.graph_key``: cos(theta*), the arrays'
+    addresses) the shape has no graph for runs eagerly, the next captures
+    the iteration as a CUDA graph for that key, and from then on (this
+    call's iterations and later calls' with that key) each iteration
+    replays it.  A call that finds the shape's state in use, or whose state
+    does not fit ``HopGraphs``' memory budget, runs eagerly on a state of
+    its own.  The host's loop, its
+    ``max_hops`` bound and its one ``done.all()`` read an iteration are
+    the same either way.
+
+    Its phases are spans of ``repro_torch.trace``: ``search.init``, then an
+    iteration ``hop`` each with ``hop.sync`` (the one host sync), then
+    ``hop.beam``, ``hop.tile``, ``hop.route``, ``hop.dist``, ``hop.status``
+    and ``hop.merge`` (or ``hop.replay``, after ``hop.capture`` where it
+    captures), then ``search.final``.  The loop's host time, split into the
+    time blocked in the sync and the rest, and the number of replays add
+    to the engine call in progress (``trace.hop_loop``).
+    """
+    metric, efs, n = cfg.metric, cfg.efs, arrays["n"]
+    W, engine = cfg.beam_width, cfg.engine
+    rt = get_router(cfg.router)
+    if not 1 <= W <= efs:
+        raise ValueError("beam_width must be in [1, efs]")
+    if cfg.estimate in ("angle", "both") and not rt.prunes:
+        raise ValueError(f"estimate={cfg.estimate!r} needs a pruning router, "
+                         f"got {cfg.router!r}")
+    if engine in ("fused", "unfused") and n >= 2 ** 29:
+        raise ValueError("the kernel engines encode ids as id*4+flags in "
+                         "int32: shard below 2^29 vectors or use "
+                         "engine='torch'")
+    ph = trace.phases()
+    ph.to("search.init")
+    dev = queries.device
+    vecs = arrays["vectors"]
+    queries = queries.to(torch.float32).contiguous()
+    # the engine's cos(theta*) is an f32 value, as the JAX engine's traced
+    # f32 scalar is
+    hop = _Hop(arrays, cfg, rt, float(np.float32(cos_theta)))
+    B = queries.shape[0]
+    inf = float("inf")
+
+    nq = (torch.linalg.norm(queries, dim=1) if metric != "l2"
+          else torch.ones((B,), dtype=torch.float32, device=dev))
+
+    if cfg.use_hierarchy:
+        entry, d_entry, calls0 = _descend(arrays, queries, metric)
+    else:
+        entry = torch.full((B,), arrays["entry"], dtype=_I32, device=dev)
+        d_entry = _rank_tile(queries, vecs[entry.long()][:, None, :], metric)[:, 0]
+        calls0 = torch.ones((B,), dtype=_I32, device=dev)
     if valid is not None:
-        dcalls, ecalls, rrcalls, sqcalls, hops = (
-            torch.where(valid, a, 0)
-            for a in (dcalls, ecalls, rrcalls, sqcalls, hops))
-        extras = {k: torch.where(valid, v, 0) for k, v in extras.items()}
+        valid = valid.to(device=dev, dtype=torch.bool)
+
+    dims = (B, queries.shape[1], efs, n, hop.L, hop.M, rt.extra_counters)
+    slot = _graph_slot(graphs, dev, rt, dims + (valid is not None, str(dev)),
+                       _HopState.nbytes(*dims))
+    entry_graph = None
+    try:
+        if slot is None:
+            s = _HopState(*dims, dev)
+        else:
+            if slot.state is None:
+                slot.state = _HopState(*dims, dev)
+            s = slot.state
+            key = hop.graph_key()
+            entry_graph = slot.find(key)
+        s.start(queries, nq, entry, d_entry, calls0, valid, n)
+
+        iters = graph_iters = 0
+        t_loop, sync_ns = time.perf_counter_ns(), 0
+        while iters < cfg.max_hops:
+            ph.hop()
+            # --- the iteration's one host sync: is every query done? ------
+            ph.to("hop.sync")
+            all_done = s.done.all()
+            t0 = time.perf_counter_ns()
+            finished = bool(all_done)
+            sync_ns += time.perf_counter_ns() - t0
+            if finished:
+                break
+            # on the shape's own state: the first iteration eager, then
+            # the captured one replayed
+            if slot is not None and (entry_graph is not None or iters > 0):
+                if entry_graph is None:
+                    ph.to("hop.capture")
+                    entry_graph = slot.capture(hop, key)
+                    graphs.captured()
+                ph.to("hop.replay")
+                slot.replay(entry_graph)
+                graph_iters += 1
+            else:
+                hop.step(s, ph)
+            iters += 1
+        trace.hop_loop(iters, time.perf_counter_ns() - t_loop - sync_ns,
+                       sync_ns, graph_iters)
+
+        ph.to("search.final")
+        pool_d, pool_id = s.pool_d, s.pool_id
+        dcalls, ecalls, rrcalls, sqcalls, hops, extras = (
+            s.dcalls, s.ecalls, s.rrcalls, s.sqcalls, s.hops, s.extras)
+        if tombstone is not None:
+            # emission-time masking: dead entries routed normally; here they
+            # collapse to the pad sentinel, so neither the final rerank nor
+            # the caller ever sees them
+            dead = tombstone.to(dev)[pool_id.long()]
+            pool_d = torch.where(dead, inf, pool_d)
+            pool_id = torch.where(dead, n, pool_id)
+        if hop.sq8_on:
+            # stage-2 final rerank: every approximate survivor still in the
+            # pool gets its exact distance; entries displaced earlier never
+            # paid their fp32 row
+            mask = s.pool_apx & (pool_id < n)
+            pool_d = torch.where(mask, hop.rerank(s, pool_id, mask), pool_d)
+            nrr = mask.sum(1, dtype=_I32)
+            rrcalls = rrcalls + nrr
+            dcalls = dcalls + nrr
+        if hop.sq8_on or tombstone is not None:
+            order = _lexsort_dist_id(pool_d, pool_id)
+            pool_d, pool_id = pool_d.gather(1, order), pool_id.gather(1, order)
+        if valid is not None:
+            dcalls, ecalls, rrcalls, sqcalls, hops = (
+                torch.where(valid, a, 0)
+                for a in (dcalls, ecalls, rrcalls, sqcalls, hops))
+            extras = {k: torch.where(valid, v, 0) for k, v in extras.items()}
+        res = SearchResult(ids=pool_id, dists=pool_d, dist_calls=dcalls,
+                           est_calls=ecalls, hops=hops, iters=iters,
+                           rerank_calls=rrcalls, sq8_calls=sqcalls,
+                           extra=extras)
+        if slot is not None:
+            # the shape's state is the next call's to overwrite
+            res = res._replace(
+                extra={k: v.clone() for k, v in res.extra.items()},
+                **{f: getattr(res, f).clone() for f in _RESULT_TENSORS})
+    finally:
+        if slot is not None:
+            slot.lock.release()
     ph.close()
-    return SearchResult(ids=pool_id, dists=pool_d, dist_calls=dcalls,
-                        est_calls=ecalls, hops=hops, iters=iters,
-                        rerank_calls=rrcalls, sq8_calls=sqcalls, extra=extras)
+    return res
 
 
 # --- engine cache ------------------------------------------------------------
@@ -613,7 +915,7 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
 # do not stay pinned.  ``_ENGINE_CACHE`` holds at most ``_ENGINE_CACHE_MAX``
 # engines; a caller that must not pay an evicted engine's setup again (a
 # serving session, a mutable index's snapshot) holds its engine and calls
-# it directly.
+# it directly.  An engine's captured hop graphs and their state go with it.
 _ARRAYS_CACHE: "dict[tuple, tuple]" = {}
 _ENGINE_CACHE: "dict[tuple, tuple]" = {}
 _ENGINE_CACHE_MAX = 16
@@ -655,10 +957,15 @@ class SearchEngine:
     built it: graph arrays uploaded, SQ8 codes encoded, router tables
     built), each batch shape it runs for the first time, and each kernel
     library its calls loaded first in the process (``build.load``, which
-    may run ``nvcc``).  ``first_uses()`` reads it, where the JAX package
-    reads a jitted function's ``_cache_size()``.  Each call is also one
-    record of ``repro_torch.trace``'s call log (``trace.call``), marked
-    ``first_use`` by the same test.
+    may run ``nvcc``), and each capture of a hop graph on a batch shape
+    it has run before (a cos(theta*) or an array address the shape has no
+    graph for, or a shape whose slot ``HopGraphs`` dropped); a shape's
+    first capture falls inside that shape's first use.  ``first_uses()``
+    reads it, where the JAX package reads a jitted function's
+    ``_cache_size()``.  Each call is also one record of
+    ``repro_torch.trace``'s call log (``trace.call``), marked
+    ``first_use`` by the same test.  Its hop iterations replay from
+    ``graphs`` (``HopGraphs``) on a CUDA device.
     """
 
     def __init__(self, g: GraphIndex, arrays, cfg: SearchSpec,
@@ -668,9 +975,11 @@ class SearchEngine:
         self.cfg = cfg
         self.tombstones = tombstones
         self.dev = dev
+        self.graphs = HopGraphs()
         self._lock = threading.Lock()
         self._shapes: set = set()       # guarded by: self._lock
         self._loads = 0                 # guarded by: self._lock
+        self._recaptures = 0            # guarded by: self._lock
 
     def __call__(self, queries, cos_theta, tombstone=None) -> SearchResult:
         if (tombstone is not None) != self.tombstones:
@@ -683,21 +992,26 @@ class SearchEngine:
                 if tombstone is not None:
                     tombstone = torch.as_tensor(tombstone, device=self.dev)
             loads0 = build.first_loads_on_this_thread()
+            caps0 = self.graphs.captures_on_this_thread()
             res = _search_batch(self.arrays, q, cos_theta, self.cfg,
-                                tombstone=tombstone)
+                                tombstone=tombstone, graphs=self.graphs)
             loads = build.first_loads_on_this_thread() - loads0
+            caps = self.graphs.captures_on_this_thread() - caps0
             shape = tuple(q.shape)
             with self._lock:
-                rec.first_use = loads > 0 or shape not in self._shapes
+                new = shape not in self._shapes
+                rec.first_use = loads > 0 or new or caps > 0
                 self._shapes.add(shape)
                 self._loads += loads
+                self._recaptures += 0 if new else caps
             rec.rows = shape[0]
         return res
 
     def first_uses(self) -> int:
-        """Setup (1) + batch shapes run + kernel libraries first loaded."""
+        """Setup (1) + batch shapes run + kernel libraries first loaded +
+        captures on shapes run before."""
         with self._lock:
-            return 1 + len(self._shapes) + self._loads
+            return 1 + len(self._shapes) + self._loads + self._recaptures
 
 
 def _insert_locked(key, g: GraphIndex, engine: SearchEngine):

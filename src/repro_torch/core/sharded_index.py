@@ -34,7 +34,7 @@ from repro_torch.core import distances as D
 from repro_torch.core.angles import AngleProfile, sample_angle_profile
 from repro_torch.core.graph import GraphIndex
 from repro_torch.core.routers import get_router
-from repro_torch.core.search import _search_batch
+from repro_torch.core.search import HopGraphs, _search_batch
 from repro_torch.core.spec import SearchSpec, SearchStats, resolve_search_spec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fault import failpoints as fault
@@ -184,9 +184,11 @@ def shard_tensors(arrays: ShardedIndexArrays, s: int,
 def make_serve_step(cfg: SearchSpec, ns: int):
     """The serve step's two halves: ``(local_search, merge)``.
 
-    ``local_search(shard, queries, cos_theta, valid)`` runs one shard's
-    search (``shard`` from ``shard_tensors``; ``valid`` [B] bool marks the
-    real lanes of a bucket-padded batch, padded lanes count zero) and
+    ``local_search(shard, queries, cos_theta, valid, graphs=None)`` runs
+    one shard's search (``shard`` from ``shard_tensors``; ``valid`` [B]
+    bool marks the real lanes of a bucket-padded batch, padded lanes count
+    zero; ``graphs``: the shard's ``HopGraphs``, which replay its hop
+    iterations on a CUDA device) and
     returns ``(dists [B, efs], global ids [B, efs] int32 with -1 for empty
     slots, SearchResult)``.
 
@@ -199,8 +201,9 @@ def make_serve_step(cfg: SearchSpec, ns: int):
     extra_names = get_router(cfg.router).extra_counters
     kk = cfg.efs              # merge width; k slices host-side
 
-    def local_search(shard, queries, cos_theta, valid):
-        res = _search_batch(shard, queries, cos_theta, cfg, valid=valid)
+    def local_search(shard, queries, cos_theta, valid, graphs=None):
+        res = _search_batch(shard, queries, cos_theta, cfg, valid=valid,
+                            graphs=graphs)
         loc_d, loc_i = res.dists[:, :kk], res.ids[:, :kk]
         glob_i = torch.where(loc_i < ns, loc_i + shard["offset"], -1)
         return loc_d, glob_i.to(torch.int32), res
@@ -226,10 +229,12 @@ def make_serve_step(cfg: SearchSpec, ns: int):
 class ShardedStep:
     """The serve step for one canonical spec, with its first-use ledger.
 
-    Counts one setup, each batch shape it first runs and each kernel
-    library its calls first load, once for the step and not per shard: the
-    counterpart of the reference's one jitted step, which compiles once
-    per batch shape whatever the shard count.
+    Counts one setup, each batch shape it first runs, each kernel library
+    its calls first load and each call that captured a hop graph on a
+    batch shape it had run (a new cos(theta*), say; ``SearchEngine``), once
+    for the step and not per shard: the counterpart of the reference's one
+    jitted step, which compiles once per batch shape whatever the shard
+    count.
     """
 
     def __init__(self, cfg: SearchSpec, ns: int):
@@ -237,30 +242,41 @@ class ShardedStep:
         self._lock = threading.Lock()
         self._shapes: set = set()       # guarded by: self._lock
         self._loads = 0                 # guarded by: self._lock
+        self._recaptures = 0            # guarded by: self._lock
+        # each shard's captured hop iterations, by its position
+        self._graphs: Dict[int, HopGraphs] = {}   # guarded by: self._lock
 
     def __call__(self, shards, queries: np.ndarray, cos_theta: float,
                  valid: np.ndarray):
         loads0 = build.first_loads_on_this_thread()
         on_dev = {}
         parts = []
-        for shard in shards:
+        captured = False
+        for i, shard in enumerate(shards):
             dev = shard["vectors"].device
             if dev not in on_dev:
                 on_dev[dev] = (torch.as_tensor(queries, device=dev),
                                torch.as_tensor(valid, device=dev))
             q, v = on_dev[dev]
-            parts.append(self.local_search(shard, q, cos_theta, v))
+            with self._lock:
+                graphs = self._graphs.setdefault(i, HopGraphs())
+            caps0 = graphs.captures_on_this_thread()
+            parts.append(self.local_search(shard, q, cos_theta, v, graphs))
+            captured |= graphs.captures_on_this_thread() > caps0
         out = self.merge(parts)
         loads = build.first_loads_on_this_thread() - loads0
+        shape = tuple(queries.shape)
         with self._lock:
-            self._shapes.add(tuple(queries.shape))
+            self._recaptures += int(captured and shape in self._shapes)
+            self._shapes.add(shape)
             self._loads += loads
         return out
 
     def first_uses(self) -> int:
-        """Setup (1) + batch shapes run + kernel libraries first loaded."""
+        """Setup (1) + batch shapes run + kernel libraries first loaded +
+        calls that captured on a shape run before."""
         with self._lock:
-            return 1 + len(self._shapes) + self._loads
+            return 1 + len(self._shapes) + self._loads + self._recaptures
 
 
 class ShardedAnnIndex:

@@ -15,10 +15,14 @@ before the launch but the output allocations):
 ``LAUNCHES`` counts launches per kernel (``gather_distance`` serves the
 three gather wrappers), so a run can show that the main path went through
 the kernels (``chip_smoke.py`` resets and reads it); each thread's own
-launches are counted besides (``thread_launch_counts``).
+launches are counted besides (``thread_launch_counts``).  A launch issued
+while a CUDA graph is captured runs nothing then: ``recording_launches``
+collects those instead, and ``add_launches`` counts them again at each
+replay of the graph.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Dict
 
@@ -44,13 +48,38 @@ def reset_launch_counts() -> None:
 
 def _launched(name: str) -> None:
     """Count one launch of ``name``: in ``LAUNCHES`` and in the calling
-    thread's own counts."""
+    thread's own counts (inside ``recording_launches``: in its record)."""
+    rec = getattr(_THREAD, "recording", None)
+    if rec is not None:
+        rec[name] = rec.get(name, 0) + 1
+        return
+    add_launches({name: 1})
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count ``counts[name]`` launches of each ``name``: in ``LAUNCHES``
+    and in the calling thread's own counts."""
     with _LAUNCH_LOCK:
-        LAUNCHES[name] += 1
+        for name, k in counts.items():
+            LAUNCHES[name] += k
     mine = getattr(_THREAD, "launches", None)
     if mine is None:
         mine = _THREAD.launches = dict.fromkeys(LAUNCHES, 0)
-    mine[name] += 1
+    for name, k in counts.items():
+        mine[name] += k
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Count none of the calling thread's launches inside the block; yields
+    a dict that collects them by kernel instead (the launches of a CUDA
+    graph's capture, which ``add_launches`` counts at each replay)."""
+    rec: Dict[str, int] = {}
+    _THREAD.recording = rec
+    try:
+        yield rec
+    finally:
+        _THREAD.recording = None
 
 
 def thread_launch_counts() -> Dict[str, int]:

@@ -675,6 +675,10 @@ class MutableAnnIndex:
         tomb_dev = _tombstone_dev(np.zeros((g.n,), bool), self.device)
         with self._engine_lock:
             noted = {key: sorted(bs) for key, bs in self._noted.items()}
+        # the cos(theta*) a request without its own searches with: the hop
+        # graphs on the card are captured for it
+        profile = new_snap.index.profile
+        cos_theta = profile.cos_theta_star if profile is not None else 0.0
         for key, batches in noted.items():
             cfg = dataclasses.replace(
                 key, metric=g.metric,
@@ -684,7 +688,7 @@ class MutableAnnIndex:
             for b in batches:
                 dummy = torch.zeros((b, g.dim), dtype=torch.float32,
                                     device=self.device)
-                fn(dummy, 0.0, tomb_dev).ids.cpu()
+                fn(dummy, cos_theta, tomb_dev).ids.cpu()
             with self._engine_lock:
                 new_snap.engines[cfg] = fn
                 new_snap.warm_discount[cfg] = fn.first_uses()

@@ -32,10 +32,13 @@ counter (``compile_count``) — and these adapters bind it to the engines:
 
 ``compile_count`` counts *first-use events* (``SearchEngine.first_uses``:
 an engine's setup, each batch shape it first runs, each kernel library
-its calls first load; plus, for a mutable index, each first delta-scan
-shape), the one-time work the JAX package's count of XLA executables
-stands for.  Request-only fields (``k``/``cos_theta``) never add one, so
-after warmup a session's count moves only if a request paid such work.
+its calls first load, each hop graph captured on a batch shape it had
+run; plus, for a mutable index, each first delta-scan shape), the
+one-time work the JAX package's count of XLA executables stands for.
+``k`` never adds one; on a CUDA device a ``cos_theta`` a bucket has not
+yet run with adds one, the capture of that bucket's hop graph for it
+(warmup runs the session's own).  After warmup a session's count moves
+only if a request paid such work.
 ``k`` is capped at the session's ``efs``: a larger ``k`` would widen the
 result pool, a new engine.
 """

@@ -6,9 +6,11 @@ Counters are always on:
   product and selection on the device (``knn.product_s``,
   ``knn.select_s``: ``core/knn_graph.py``) and the SQ8 set-up on the host
   (``engine.sq8_s``: ``core/search.py``'s ``ensure_sq8_arrays``), in
-  seconds;
+  seconds, and the hop iterations captured as CUDA graphs
+  (``search.graph_captures``, a count);
 * a log of the last ``CALL_LOG_MAX`` search engine calls (``calls``), one
-  ``Call`` each: its rows and hop-loop iterations, the loop's host time
+  ``Call`` each: its rows and hop-loop iterations, how many of those were
+  replays of a captured graph (``graph_iters``), the loop's host time
   split into the time blocked in its ``done.all()`` reads (``sync_ns``)
   and the rest (``dispatch_ns``), its host start and end, whether a torch
   profiler was active and whether it was a first use of the engine.
@@ -28,7 +30,10 @@ has open.
 after another with ``phases()`` instead (``Phases.hop``, ``Phases.to``),
 since a ``with`` block costs ~0.2 us of host time even when it does
 nothing.  Off and outside a profiler, both are one shared object that
-does nothing, behind one check.
+does nothing, behind one check.  An iteration that replays a captured
+CUDA graph marks one phase, ``hop.replay``, in place of ``hop.beam``
+through ``hop.merge`` (and ``hop.capture`` before it, if it captured the
+graph).
 """
 from __future__ import annotations
 
@@ -63,6 +68,7 @@ class Call:
     request: int
     rows: int = 0
     iters: int = 0
+    graph_iters: int = 0     # of the iters, replays of a captured graph
     dispatch_ns: int = 0     # hop-loop host time less sync_ns
     sync_ns: int = 0         # host time blocked in the loop's done.all() reads
     start_ns: int = 0        # host clock, time.perf_counter_ns
@@ -261,14 +267,14 @@ class _NoPhases:
         pass
 
 
-_NO_PHASES = _NoPhases()
+NO_PHASES = _NoPhases()
 
 
 def phases():
-    """A ``Phases`` for one hop loop; the shared one that does nothing while
-    spans are off and no profiler is active."""
+    """A ``Phases`` for one hop loop; the shared one that does nothing
+    (``NO_PHASES``) while spans are off and no profiler is active."""
     if not _ON and not _profiler._is_profiler_enabled:
-        return _NO_PHASES
+        return NO_PHASES
     return Phases()
 
 
@@ -295,12 +301,15 @@ def call():
     log_call(rec)
 
 
-def hop_loop(iters: int, dispatch_ns: int, sync_ns: int) -> None:
-    """Add one hop loop's iterations and host times to the engine call in
-    progress on this thread (none: the loop ran outside an engine call)."""
+def hop_loop(iters: int, dispatch_ns: int, sync_ns: int,
+             graph_iters: int = 0) -> None:
+    """Add one hop loop's iterations (``graph_iters`` of them replays of a
+    captured graph) and host times to the engine call in progress on this
+    thread (none: the loop ran outside an engine call)."""
     rec = _LOCAL.call
     if rec is not None:
         rec.iters += iters
+        rec.graph_iters += graph_iters
         rec.dispatch_ns += dispatch_ns
         rec.sync_ns += sync_ns
 

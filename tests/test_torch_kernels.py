@@ -512,3 +512,28 @@ def test_launch_counts_per_thread():
         assert ops.LAUNCHES["pool_merge"] == base["pool_merge"] + 3
     finally:
         ops.LAUNCHES.update(base)
+
+
+def test_launches_recorded_in_a_capture_count_at_each_replay():
+    """Launches issued while a CUDA graph is captured run nothing then:
+    ``recording_launches`` collects them apart, and ``add_launches``
+    counts them at each replay, in ``LAUNCHES`` and the thread's counts."""
+    base = dict(ops.LAUNCHES)
+    mine = ops.thread_launch_counts()
+    try:
+        with ops.recording_launches() as rec:
+            ops._launched("pool_merge")
+            ops._launched("fused_expand")
+            ops._launched("pool_merge")
+        assert rec == {"pool_merge": 2, "fused_expand": 1}
+        assert ops.LAUNCHES == base and ops.thread_launch_counts() == mine
+        for _ in range(3):
+            ops.add_launches(rec)
+        ops._launched("pool_merge")
+        assert ops.LAUNCHES["pool_merge"] == base["pool_merge"] + 7
+        assert ops.LAUNCHES["fused_expand"] == base["fused_expand"] + 3
+        now = ops.thread_launch_counts()
+        assert now["pool_merge"] == mine["pool_merge"] + 7
+        assert now["fused_expand"] == mine["fused_expand"] + 3
+    finally:
+        ops.LAUNCHES.update(base)

@@ -252,3 +252,35 @@ def test_inner_product_engines_are_bit_equal(unit_index, W, estimate):
         assert torch.equal(out[e].dists, out["torch"].dists)
         for c in COUNTERS:
             assert torch.equal(getattr(out[e], c), getattr(out["torch"], c))
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("router,estimate", [("crouting", "exact"),
+                                             ("crouting", "both"),
+                                             ("finger", "exact")])
+def test_each_hop_step_writes_its_state_in_place(tiny, monkeypatch, engine,
+                                                 router, estimate):
+    """A CUDA graph of one hop iteration replays on fixed addresses, so
+    ``_Hop.step`` must write every new value into the state's own tensors:
+    on the CPU, where the same step runs eagerly, no state tensor is
+    replaced, and the result still equals the reference's."""
+    from repro_torch.core import search as S
+    ds, j, t, ct = tiny
+    orig = S._Hop.step
+    steps = []
+
+    def tensors(s):
+        return {k: (v.data_ptr(), tuple(v.shape), v.dtype)
+                for k, v in list(vars(s).items()) + list(s.extras.items())
+                if isinstance(v, torch.Tensor)}
+
+    def step(self, s, ph):
+        before = tensors(s)
+        orig(self, s, ph)
+        steps.append(tensors(s) == before)
+
+    monkeypatch.setattr(S._Hop, "step", step)
+    spec = dict(k=10, efs=32, router=router, beam_width=4, estimate=estimate)
+    a, b = _run_both(j, t, ds.queries, ct, engine, **spec)
+    _assert_same(a, b)
+    assert len(steps) == b.iters > 0 and all(steps)

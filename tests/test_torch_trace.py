@@ -6,6 +6,7 @@ range directly under the caller's range, which is how the benchmark's
 trace summary names an idle gap; the call log marks profiled calls and
 first uses; and no setting of the tracer changes a result.
 """
+import dataclasses
 from collections import Counter
 from types import SimpleNamespace
 
@@ -16,8 +17,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from perfbench import tracing
 from repro_torch import trace
+from repro_torch.core import routers as TR
+from repro_torch.core import search as S
 from repro_torch.core.index import AnnIndex
-from repro_torch.core.search import build_search_fn
+from repro_torch.core.search import HopGraphs, _graph_slot, build_search_fn
 from repro_torch.core.spec import SearchSpec
 
 PHASES = ("hop.sync", "hop.beam", "hop.tile", "hop.route", "hop.dist",
@@ -236,3 +239,253 @@ def test_a_stopwatch_sums_its_laps_on_the_host_clock():
     assert trace.totals()["x"] == pytest.approx(2 * (b - a))
     w.commit()
     assert trace.totals()["x"] == pytest.approx(2 * (b - a))
+
+
+# --- the hop loop's CUDA graph: what the CPU can check -------------------------
+
+@pytest.mark.parametrize("engine", ["torch", "fused", "unfused"])
+def test_the_cpu_loop_captures_and_replays_no_graph(data, engine):
+    idx, q = data
+    spec = _spec(engine, "both")
+    for _ in range(3):
+        _search(idx, q, spec)
+    calls = trace.calls()
+    assert len(calls) == 3 and all(c.iters > 0 for c in calls)
+    assert [c.graph_iters for c in calls] == [0, 0, 0]
+    assert trace.totals().get("search.graph_captures", 0) == 0
+    _, fn = build_search_fn(idx.graph, idx.engine_spec(spec), device="cpu")
+    assert len(fn.graphs) == 0
+
+
+def test_only_a_graph_safe_router_on_a_cuda_device_takes_a_graph_slot(
+        monkeypatch):
+    """The loop's choice, read without a card: a slot (the path that
+    captures and replays) only on a CUDA device, under a router that
+    declares itself ``graph_safe``, and only with a ``HopGraphs``."""
+    monkeypatch.setattr(S, "_memory_budget", lambda dev: 1 << 40)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    for name in ("none", "crouting", "crouting_o", "triangle", "finger"):
+        rt = TR.get_router(name)
+        assert rt.graph_safe, name
+        graphs = HopGraphs()
+        slot = _graph_slot(graphs, cuda, rt, ("shape",), 10)
+        assert slot is not None and slot.lock.locked()
+        slot.lock.release()
+        assert _graph_slot(graphs, cpu, rt, ("shape",), 10) is None
+        assert _graph_slot(None, cuda, rt, ("shape",), 10) is None
+    unsafe = TR.EdgeAngleRouter(name="_test_unsafe", prunes=True,
+                                kernel_estimate=True, graph_safe=False)
+    assert not unsafe.graph_safe and not TR.Router(name="x").graph_safe
+    graphs = HopGraphs()
+    assert _graph_slot(graphs, cuda, unsafe, ("shape",), 10) is None
+    assert len(graphs) == 0
+
+
+def test_a_registered_router_that_is_not_graph_safe_runs_eagerly(data):
+    idx, q = data
+    TR.register_router(TR.EdgeAngleRouter(name="_test_unsafe", prunes=True,
+                                          kernel_estimate=True,
+                                          graph_safe=False))
+    try:
+        spec = SearchSpec(k=10, efs=32, router="_test_unsafe", beam_width=4)
+        ref = _search(idx, q, _spec())
+        got = _search(idx, q, spec)
+        np.testing.assert_array_equal(got[0], ref[0])
+        assert got[2].iters == ref[2].iters
+        assert trace.calls()[-1].graph_iters == 0
+        assert trace.totals().get("search.graph_captures", 0) == 0
+    finally:
+        TR.unregister_router("_test_unsafe")
+
+
+def test_hop_graphs_keep_the_recent_shapes_and_lend_each_to_one_call(
+        monkeypatch):
+    from repro_torch.core.search import HOP_GRAPHS_MAX
+    monkeypatch.setattr(S, "_memory_budget", lambda dev: 1 << 40)
+    dev = torch.device("cuda")
+    g = HopGraphs()
+    a = g.acquire("a", dev, 1)
+    assert a is not None and g.acquire("a", dev, 1) is None  # in use: eager
+    a.lock.release()
+    for i in range(HOP_GRAPHS_MAX - 1):
+        g.acquire(i, dev, 1).lock.release()
+    assert g.acquire("a", dev, 1) is a                  # now the most recent
+    a.lock.release()
+    g.acquire("new", dev, 1).lock.release()
+    kept = list(range(1, HOP_GRAPHS_MAX - 1)) + ["a", "new"]
+    assert len(g) == HOP_GRAPHS_MAX and list(g._slots) == kept
+    assert g.acquire(0, dev, 1) is not None and 0 in g._slots
+    assert 1 not in g._slots
+
+
+def test_hop_graphs_keep_every_engines_states_within_the_memory_budget(
+        monkeypatch):
+    """The kept states of all engines on one device share one budget: a
+    new shape drops the least recently used idle slots, of any engine on
+    that device, until it fits; a slot in use is never dropped; a state
+    that cannot fit takes no slot (its call runs eagerly) and drops
+    nothing."""
+    monkeypatch.setattr(S, "_memory_budget", lambda dev: 100)
+    dev, other = torch.device("cuda", 6), torch.device("cuda", 7)
+    g1, g2 = HopGraphs(), HopGraphs()
+    for g, shape, dv in ((g1, "a", dev), (g2, "b", dev), (g2, "x", other)):
+        g.acquire(shape, dv, 40).lock.release()
+    c = g1.acquire("c", dev, 40)            # 120 > 100: "a" goes
+    assert c is not None and list(g1._slots) == ["c"]
+    c.lock.release()
+    b = g2.acquire("b", dev, 40)            # in use from here on
+    d = g2.acquire("d", dev, 60)            # "c" is idle and older: it goes
+    assert d is not None and not g1._slots
+    d.lock.release()
+    assert list(g2._slots) == ["x", "b", "d"]
+    e = g1.acquire("e", dev, 30)            # 130: "d" is idle, "b" is not
+    assert e is not None and list(g2._slots) == ["x", "b"]
+    e.lock.release()
+    assert g1.acquire("big", dev, 101) is None      # never fits
+    assert list(g1._slots) == ["e"] and list(g2._slots) == ["x", "b"]
+    e = g1.acquire("e", dev, 30)
+    f = g1.acquire("f", dev, 70)            # "e" is in use, "b" too
+    assert f is None and list(g1._slots) == ["e"]
+    b.lock.release()
+    e.lock.release()
+
+
+def test_hop_graphs_lend_a_slot_to_one_thread_at_a_time(monkeypatch):
+    """Serving threads share engines: under many threads and a short
+    switch interval, no slot is ever lent to two calls at once, and the
+    kept states stay within the budget."""
+    import sys
+    import threading
+    monkeypatch.setattr(S, "_memory_budget", lambda dev: 100)
+    dev = torch.device("cuda", 5)
+    engines = [HopGraphs() for _ in range(3)]
+    users, faults = {}, []
+
+    def work(seed):
+        rng = np.random.default_rng(seed)
+        for _ in range(300):
+            g = engines[rng.integers(3)]
+            slot = g.acquire(int(rng.integers(6)), dev,
+                             int(rng.integers(10, 40)))
+            if slot is None:
+                continue
+            if users.setdefault(id(slot), 0):
+                faults.append("shared")
+            users[id(slot)] += 1
+            users[id(slot)] -= 1
+            slot.lock.release()
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,))
+                   for i in range(16)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert not faults
+    assert sum(slot.nbytes for g in engines
+               for slot in g._slots.values()) <= 100
+
+
+def test_a_hop_state_allocates_the_bytes_it_is_counted_at():
+    dims = (5, 16, 32, 600, 48, 12, ("finger_est_calls",))
+    s = S._HopState(*dims, torch.device("cpu"))
+    got = sum(t.numel() * t.element_size()
+              for t in list(vars(s).values()) + list(s.extras.values())
+              if isinstance(t, torch.Tensor))
+    assert got == S._HopState.nbytes(*dims)
+
+
+def test_an_engine_counts_a_capture_on_a_shape_it_has_run_as_a_first_use(
+        data, monkeypatch):
+    """A capture on a new shape falls inside that shape's first use; one
+    on a shape the engine has run (a new cos(theta*)) is a first use of
+    its own, in ``first_uses()`` and in the call's record.  The CPU
+    captures nothing, so the loop here reports a capture where cos(theta*)
+    is 0.5."""
+    idx, q = data
+    real = S._search_batch
+
+    def search(arrays, queries, cos_theta, cfg, graphs=None, **kw):
+        if cos_theta == 0.5:
+            graphs.captured()
+        return real(arrays, queries, cos_theta, cfg, **kw)
+
+    monkeypatch.setattr(S, "_search_batch", search)
+    cfg = idx.engine_spec(SearchSpec(k=10, efs=40, router="crouting",
+                                     beam_width=4))
+    _, fn = build_search_fn(idx.graph, cfg, device="cpu")
+    uses = []
+    for rows, ct in ((8, 0.3), (8, 0.3), (8, 0.5), (4, 0.5), (8, 0.3)):
+        fn(q[:rows], ct)
+        uses.append((fn.first_uses(), trace.calls()[-1].first_use))
+    base = uses[0][0]
+    assert uses == [(base, True), (base, False), (base + 1, True),
+                    (base + 2, True), (base + 2, False)]
+    assert fn.graphs.captures_on_this_thread() == 2
+
+
+def test_a_merge_prewarms_with_the_new_snapshots_cos_theta(monkeypatch):
+    """A request without a cos(theta*) of its own searches with the
+    snapshot's profile; the merge's prewarm does too, so on the card the
+    hop graphs a request replays are captured off the request path."""
+    from repro_torch.mutate import index as MI
+    rng = np.random.default_rng(3)
+    base = rng.standard_normal((300, 16)).astype(np.float32)
+    idx = AnnIndex.build(base, graph="knn", k=10, device="cpu")
+    mi = MI.MutableAnnIndex(idx, MI.MutateConfig(auto_merge="off",
+                                                 graph="hnsw",
+                                                 graph_kw=dict(m=8, efc=32)))
+    mi.search(base[:4])
+    seen = []
+    real = MI.build_search_fn
+
+    def build(*a, **kw):
+        arrays, fn = real(*a, **kw)
+
+        def call(queries, cos_theta, *rest):
+            seen.append(cos_theta)
+            return fn(queries, cos_theta, *rest)
+        call.first_uses = fn.first_uses
+        return arrays, call
+
+    monkeypatch.setattr(MI, "build_search_fn", build)
+    mi.insert(rng.standard_normal((6, 16)).astype(np.float32))
+    mi.delete(mi.live_ids()[:3])
+    assert mi.merge()
+    profile = mi._state.snapshot.index.profile
+    assert seen == [profile.cos_theta_star]
+
+
+def test_graph_iters_and_the_replay_phase_are_as_documented():
+    fields = {f.name: f for f in dataclasses.fields(trace.Call)}
+    assert "graph_iters" in fields and trace.Call(request=1).graph_iters == 0
+    for word in ("``graph_iters``", "``hop.replay``", "``hop.capture``",
+                 "``search.graph_captures``"):
+        assert word in trace.__doc__, word
+    with trace.call() as rec:
+        trace.hop_loop(5, 100, 50, graph_iters=4)
+        trace.hop_loop(2, 10, 5)
+    assert (rec.iters, rec.graph_iters, rec.dispatch_ns, rec.sync_ns) == \
+        (7, 4, 110, 55)
+    assert trace.calls()[-1] is rec
+    trace.enable()
+    ph = trace.phases()
+    for _ in range(2):
+        ph.hop()
+        ph.to("hop.sync")
+        ph.to("hop.replay")
+    ph.close()
+    spans = trace.drain()
+    by_id = {s.id: s for s in spans}
+    assert Counter(s.name for s in spans) == {"hop": 2, "hop.sync": 2,
+                                              "hop.replay": 2}
+    for s in spans:
+        if s.name == "hop.replay":
+            assert by_id[s.parent].name == "hop"
+    assert trace.NO_PHASES is not ph
