@@ -10,7 +10,8 @@
   read.
 
 A later cell, configuration, mix or metric is new files and new entries;
-nothing here changes for it.
+nothing here changes for it.  A cell whose configuration the benchmark
+cannot judge (``check.judgeable``) is refused as it is loaded.
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import json
 from pathlib import Path
 from types import ModuleType
 from typing import List, NamedTuple
+
+from perfbench import check
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -59,6 +62,7 @@ def find_cell(name: str, bench: dict, root: Path = HERE,
     entry = cells[name]
     conf = {c["name"]: c for c in bench["configs"]}[entry["config"]]
     config = json.loads((repo / conf["file"]).read_text())
+    check.judgeable(config)
     mix = json.loads((root / "traffic" / f"{entry['traffic']}.json")
                      .read_text())
     loop = load_module(root / "loops" / f"{mix['loop']}.py")

@@ -2,8 +2,10 @@
 place, a step below the configuration's float32.
 
 The control builds the K-NN graph from products of TF32 operands, and
-profiles and searches on bf16 vectors; ``check.judge`` then judges what it
-produced exactly as it judges the program's run.  A sound comparison
+profiles and searches on bf16 vectors, all under the configuration's
+metric (under ``cosine`` on rows normalised before they are rounded);
+``check.judge`` then judges what it produced exactly as it judges the
+program's run.  A sound comparison
 finds it not correct.  The benchmark's runs never run it; run it on the
 card at the cell's own size:
 
@@ -33,21 +35,21 @@ from perfbench import reference as R  # noqa: E402
 
 
 def control_side(inputs: data.Inputs, cfg: dict) -> check.Side:
-    base, n = inputs.base, inputs.base.shape[0]
-    nbrs, edges = R.knn_graph(base, cfg["graph"]["k"], "low")
-    entry = R.medoid(base, "low")
-    x = R.rows_in(base, "low")
+    base, n, metric = inputs.base, inputs.base.shape[0], cfg["metric"]
+    nbrs, edges = R.knn_graph(base, cfg["graph"]["k"], "low", metric)
+    entry = R.medoid(base, "low", metric)
+    x = R.rows_in(base, "low", metric)
     prof = cfg["profile"]
     angles = R.profile_angles(x.cpu().numpy(), nbrs.cpu().numpy(), entry,
                               x[inputs.profile_rows].cpu().numpy(),
-                              prof["efs"])
+                              prof["efs"], metric)
     theta = float(np.percentile(angles, prof["percentile"]))
     spec = cfg["search"]
     sq8 = R.sq8_tables(x) if spec["estimate"] in R.TWO_STAGE else None
     xp, nb, ed = R.with_pad(x, nbrs, edges)
     found = R.search_blocks(xp, nb, ed, entry,
-                            R.rows_in(inputs.queries, "low"),
-                            math.cos(theta), spec, sq8,
+                            R.rows_in(inputs.queries, "low", metric),
+                            math.cos(theta), spec, metric, sq8,
                             block=check.rows_block(
                                 x.shape[1], spec["beam_width"] * nbrs.shape[1]))
     ids = torch.where(found.ids >= n, -1, found.ids)
@@ -62,6 +64,7 @@ def control_side(inputs: data.Inputs, cfg: dict) -> check.Side:
 
 
 def run_control(cfg: dict, seed: int, device) -> dict:
+    check.judgeable(cfg)
     inputs = data.make_inputs(cfg, seed, device)
     t0 = time.perf_counter()
     side = control_side(inputs, cfg)

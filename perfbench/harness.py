@@ -1,8 +1,10 @@
 """One run of one cell: set-up, the window, the check, the result.
 
 In order: the cell's vectors on the device from the seed (``data.py``);
-the index through ``repro_torch`` (``AnnIndex.build``, then
-``sample_angle_profile`` on the benchmark's profile queries); the search
+the index through ``repro_torch`` (``AnnIndex.build`` under the
+configuration's metric, then ``sample_angle_profile`` on the benchmark's
+profile queries, taken from the rows the program holds: under ``cosine``
+normalised); the search
 engine held as a serving session holds it (``build_search_fn``); the
 mix's loop warms the shapes it will send (``warm``); then it drives the
 window for the window's seconds (``run``).  A loop sends requests through
@@ -124,20 +126,23 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     """The result of one run (the result line's object); ``t_start`` is
     when the process started, by ``time.perf_counter``."""
     cfg = cell.config
+    check.judgeable(cfg)
     spans = tracing.Spans(device)
     with spans("data"):
         inputs = data.make_inputs(cfg, seed, device)
         base = inputs.base.cpu().numpy()
         queries = inputs.queries.cpu().numpy()
-        prof_q = base[inputs.profile_rows.cpu().numpy()]
+        prof_rows = inputs.profile_rows.cpu().numpy()
     graph = cfg["graph"]
     with spans("build"):
         idx = AnnIndex.build(base, graph=graph["kind"], k=graph["k"],
-                             profile=False, device=device)
+                             metric=cfg["metric"], profile=False,
+                             device=device)
     with spans("profile"):
         idx.profile = sample_angle_profile(
             idx.graph, efs=cfg["profile"]["efs"],
-            percentile=cfg["profile"]["percentile"], queries=prof_q)
+            percentile=cfg["profile"]["percentile"],
+            queries=idx.graph.vectors[prof_rows])
     spec = SearchSpec(**cfg["search"])
     with spans("engine"):
         _, fn = build_search_fn(idx.graph, idx.engine_spec(spec),
@@ -178,7 +183,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
 
     t_ref = time.perf_counter()
     gt, _ = R.nearest(inputs.base, inputs.queries[torch.as_tensor(
-        ans.rows, device=inputs.base.device)], cfg["search"]["k"], "fp64")
+        ans.rows, device=inputs.base.device)], cfg["search"]["k"], "fp64",
+        cfg["metric"])
     correct, checks, info = check.judge(inputs, side, cfg, seed)
     reference_s = time.perf_counter() - t_ref
     record = {

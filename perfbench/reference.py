@@ -5,14 +5,24 @@ package or JAX, and nothing takes a table the program made: from the
 benchmark's own vectors it works out again what the program's set-up
 derives.
 
-* ``nearest``: exact nearest base rows of given vectors (the K-NN graph's
-  rows, with the row itself left out, and the ground truth);
-* ``medoid``: the row nearest the centroid, the K-NN graph's entry point;
-* ``edge_lengths``: the Euclidean length of every edge of a graph;
+Every distance is taken under the configuration's ``metric`` (one of
+``METRICS``), as the paper's Eq. 4 defines the ranks: the squared L2
+distance (``l2``), ``1 - <q, x>`` (``ip``), and the same on rows normalised
+in float64 (``cosine``; ``rows_in`` normalises).  A search keeps its pool
+in ranks; the CRouting estimate lives in Euclidean space and reaches it
+through ``rank_to_eu2`` and ``eu2_to_rank`` with the rows' norms.
+
+* ``nearest``: exact nearest base rows of given vectors by rank, ties by
+  the lower id (the K-NN graph's rows, with the row itself left out, and
+  the ground truth);
+* ``medoid``: the row of least rank to the centroid, the K-NN graph's
+  entry point;
+* ``edge_lengths``: the Euclidean length of every edge of a graph, from
+  the rows;
 * ``profile_angles``: the paper's angle profile (section 4.1): best-first
-  search (Algorithm 1) of each profile query, the angle between c->q and
-  c->n by the cosine theorem at every exact distance from an expanded
-  node c;
+  search (Algorithm 1) of each profile query in rank order, the angle
+  between c->q and c->n by the cosine theorem on the Euclidean lengths at
+  every exact distance from an expanded node c;
 * ``sq8_tables``: the SQ8 grid (per-dimension min/max over the base rows,
   255 steps, an error radius of half a step) and the codes;
 * ``search``: the batched beam search: W best unexpanded pool entries
@@ -24,7 +34,8 @@ derives.
 
 ``precision`` is ``"fp64"`` for the reference.  ``"low"`` is the control:
 the same computations a step below the configuration's float32: products
-of TF32 operands (the K-NN rows) and bf16 vectors (every distance).
+of TF32 operands (the K-NN rows) and bf16 vectors (every distance), under
+the same metric.
 """
 from __future__ import annotations
 
@@ -35,6 +46,7 @@ import numpy as np
 import torch
 
 UNVISITED, VISITED, PRUNED = 0, 1, 2
+METRICS = ("l2", "ip", "cosine")
 
 
 def _tf32(x: torch.Tensor) -> torch.Tensor:
@@ -44,8 +56,22 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def rows_in(x: torch.Tensor, precision: str) -> torch.Tensor:
-    """Vectors as a precision computes distances on them."""
+def _metric_rows(x: torch.Tensor, metric: str) -> torch.Tensor:
+    """Vectors as the metric takes them: under ``cosine`` normalised in
+    float64, as they stand otherwise."""
+    if metric not in METRICS:
+        raise ValueError(f"unknown metric {metric!r}; the reference "
+                         f"computes under {METRICS}")
+    if metric != "cosine":
+        return x
+    x = x.double()
+    return x / torch.clamp_min(torch.linalg.norm(x, dim=1, keepdim=True),
+                               1e-12)
+
+
+def rows_in(x: torch.Tensor, precision: str, metric: str) -> torch.Tensor:
+    """Vectors as a precision computes distances on them under a metric."""
+    x = _metric_rows(x, metric)
     if precision == "fp64":
         return x.double()
     if precision == "low":
@@ -58,19 +84,24 @@ def _products_in(x: torch.Tensor, precision: str) -> torch.Tensor:
 
 
 def nearest(base: torch.Tensor, x: torch.Tensor, k: int, precision: str,
-            self_rows: torch.Tensor = None, block: int = 256):
-    """Ids [R, k] int64 and squared distances [R, k] of the k base rows
-    nearest each row of ``x``, ties by the lower id; ``self_rows`` [R]
+            metric: str, self_rows: torch.Tensor = None, block: int = 256):
+    """Ids [R, k] int64 and ranks [R, k] of the k base rows nearest each
+    row of ``x`` under ``metric``, ties by the lower id; ``self_rows`` [R]
     leaves each row's own id out."""
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        xb = _products_in(base, precision)
-        bn = (xb * xb).sum(1)
+        xb = _products_in(_metric_rows(base, metric), precision)
+        x = _metric_rows(x, metric)
+        bn = (xb * xb).sum(1) if metric == "l2" else None
         ids, d2 = [], []
         for s in range(0, x.shape[0], block):
             q = _products_in(x[s: s + block], precision)
-            d = (q * q).sum(1, keepdim=True) + bn[None, :] - 2.0 * (q @ xb.T)
+            if metric == "l2":
+                d = ((q * q).sum(1, keepdim=True) + bn[None, :]
+                     - 2.0 * (q @ xb.T))
+            else:
+                d = 1.0 - q @ xb.T
             if self_rows is not None:
                 d[torch.arange(q.shape[0], device=d.device),
                   self_rows[s: s + block]] = float("inf")
@@ -86,26 +117,58 @@ def nearest(base: torch.Tensor, x: torch.Tensor, k: int, precision: str,
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def knn_graph(base: torch.Tensor, k: int, precision: str,
+def knn_graph(base: torch.Tensor, k: int, precision: str, metric: str,
               block: int = 1024):
     """A whole K-NN graph: neighbour ids [n, k] and edge lengths [n, k]
-    (the square root of the squared distance the selection used)."""
+    (under ``l2`` the square root of the squared distance the selection
+    used; under the others the Euclidean lengths from the rows the
+    products took)."""
     n = base.shape[0]
-    ids, d2 = nearest(base, base, k, precision,
-                      torch.arange(n, device=base.device), block)
-    return ids, torch.sqrt(torch.clamp_min(d2, 0.0)).float()
+    ids, r = nearest(base, base, k, precision, metric,
+                     torch.arange(n, device=base.device), block)
+    if metric == "l2":
+        return ids, torch.sqrt(torch.clamp_min(r, 0.0)).float()
+    return ids, edge_lengths(
+        _products_in(_metric_rows(base, metric), precision), ids).float()
 
 
-def medoid(base: torch.Tensor, precision: str) -> int:
-    x = rows_in(base, precision)
+def medoid(base: torch.Tensor, precision: str, metric: str) -> int:
+    """The row of least rank to the centroid of the rows, ties by the
+    lower id."""
+    x = rows_in(base, precision, metric)
     c = x.mean(0, keepdim=True)
-    return int(torch.argmin(((x - c) ** 2).sum(1)))
+    if metric == "l2":
+        return int(torch.argmin(((x - c) ** 2).sum(1)))
+    return int(torch.argmin(rank(c, x[None], metric)[0]))
 
 
 def sq_dist(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """q [B, d], rows [B, L, d] -> squared L2 [B, L]."""
     diff = rows - q[:, None, :]
     return (diff * diff).sum(-1)
+
+
+def rank(q: torch.Tensor, rows: torch.Tensor, metric: str) -> torch.Tensor:
+    """q [B, d], rows [B, L, d] -> ranks [B, L]: the squared L2 distance,
+    or ``1 - <q, x>`` (``ip``; ``cosine`` on normalised rows)."""
+    if metric == "l2":
+        return sq_dist(q, rows)
+    return 1.0 - torch.einsum("bld,bd->bl", rows, q)
+
+
+def rank_to_eu2(r, nq, nx, metric: str):
+    """A rank as the squared Euclidean distance (paper Eq. 4), with the
+    norms |q| and |x| of its two rows."""
+    if metric == "l2":
+        return r
+    return nq * nq + nx * nx + 2.0 * r - 2.0
+
+
+def eu2_to_rank(eu2, nq, nx, metric: str):
+    """The inverse of ``rank_to_eu2``."""
+    if metric == "l2":
+        return eu2
+    return (eu2 - nq * nq - nx * nx + 2.0) / 2.0
 
 
 def edge_lengths(x: torch.Tensor, nbrs: torch.Tensor,
@@ -118,18 +181,27 @@ def edge_lengths(x: torch.Tensor, nbrs: torch.Tensor,
     return out
 
 
+def _rank_np(q: np.ndarray, rows: np.ndarray, metric: str) -> np.ndarray:
+    if metric == "l2":
+        return ((rows - q) ** 2).sum(-1)
+    return 1.0 - rows @ q
+
+
 def profile_angles(x: np.ndarray, nbrs: np.ndarray, entry: int,
-                   queries: np.ndarray, efs: int) -> np.ndarray:
+                   queries: np.ndarray, efs: int, metric: str) -> np.ndarray:
     """The profile's angle samples, query after query, in visit order.
 
     ``x`` holds the base rows in the precision of the computation (float64
-    for the reference); the edge lengths |c - n| are worked out from them.
+    for the reference), as the metric takes them; the search walks in rank
+    order, and the three Euclidean lengths of each angle are worked out
+    from the rows.
     """
     n = x.shape[0]
+    l2 = metric == "l2"
     out = []
     for q in queries:
         visited = {entry}
-        d0 = float(((x[entry] - q) ** 2).sum())
+        d0 = float(_rank_np(q, x[entry], metric))
         cand, top = [(d0, entry)], [(-d0, entry)]
         while cand:
             dc, c = heapq.heappop(cand)
@@ -147,12 +219,13 @@ def profile_angles(x: np.ndarray, nbrs: np.ndarray, entry: int,
             if not new:
                 continue
             rows = x[new]
-            dn = ((rows - q) ** 2).sum(1)
+            dn = _rank_np(q, rows, metric)
             dcn = np.sqrt(((rows - x[c]) ** 2).sum(1))
-            dcq = np.sqrt(max(dc, 0.0))
+            dcq = np.sqrt(max(dc, 0.0) if l2 else ((x[c] - q) ** 2).sum())
             if dcq > 1e-9:
                 ok = np.isfinite(dcn) & (dcn > 1e-9)
-                dnq2 = np.maximum(dn[ok], 0.0)
+                dnq2 = (np.maximum(dn[ok], 0.0) if l2
+                        else ((rows[ok] - q) ** 2).sum(1))
                 cos = (dcq * dcq + dcn[ok] ** 2 - dnq2) / (2.0 * dcq * dcn[ok])
                 out.append(np.arccos(np.clip(cos, -1.0, 1.0)))
             for d, j in zip(dn.tolist(), new):
@@ -191,7 +264,7 @@ def sq8_tables(base: torch.Tensor) -> SQ8:
 
 class Found(NamedTuple):
     ids: torch.Tensor       # [B, k] int64, n where a slot holds nothing
-    dists: torch.Tensor     # [B, k] squared L2
+    dists: torch.Tensor     # [B, k] ranks
     counters: Dict[str, torch.Tensor]   # [B] int64 each
 
 
@@ -207,17 +280,21 @@ def _lexsort(d: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 
 def search(x: torch.Tensor, nbrs: torch.Tensor, edges: torch.Tensor,
            entry: int, queries: torch.Tensor, cos_theta: float, spec: dict,
-           sq8: SQ8 = None) -> Found:
-    """Batched beam search over one block of queries.
+           metric: str, sq8: SQ8 = None) -> Found:
+    """Batched beam search over one block of queries, its pool in ranks
+    under ``metric``.
 
     ``x`` [n + 1, d] holds the rows (pad row n: zeros), ``nbrs`` [n + 1, M]
     int64 the adjacency (pad row and pad slots: n), ``edges`` [n + 1, M]
-    the edge lengths (pad: inf), all in the precision of the computation,
-    as ``queries`` [B, d].  ``spec``: a search spec's fields as a
-    configuration states them: ``efs``, ``beam_width``, ``k``,
-    ``max_hops``, ``router`` (one of ``ROUTERS``), ``estimate`` ("exact",
-    "angle", "sq8" or "both") and ``beam_prune`` ("best" where it is not
-    stated).  Counters as the program defines them: ``dist_calls`` exact
+    the Euclidean edge lengths (pad: inf), all in the precision of the
+    computation, as ``queries`` [B, d], rows and queries as the metric
+    takes them (``rows_in``).  The CRouting estimate and SQ8's stage 1 work
+    in Euclidean space; their results reach the pool's ranks through
+    ``eu2_to_rank`` with the norms of the rows and the queries.
+    ``spec``: a search spec's fields as a configuration states them:
+    ``efs``, ``beam_width``, ``k``, ``max_hops``, ``router`` (one of
+    ``ROUTERS``), ``estimate`` ("exact", "angle", "sq8" or "both") and
+    ``beam_prune`` ("best" where it is not stated).  Counters as the program defines them: ``dist_calls`` exact
     distances (the entry's and the stage-2 reranks included),
     ``est_calls`` angle estimates, ``hops`` expansions, ``sq8_calls``
     stage-1 estimates, ``rerank_calls`` stage-2 reranks.
@@ -238,7 +315,10 @@ def search(x: torch.Tensor, nbrs: torch.Tensor, edges: torch.Tensor,
     lane = torch.arange(L, device=dev)[None, :]
 
     def exact(ids):
-        return sq_dist(queries, x[ids])
+        return rank(queries, x[ids], metric)
+
+    xn = torch.linalg.norm(x, dim=1)
+    nq = torch.linalg.norm(queries, dim=1)[:, None]
 
     pool_d = torch.full((B, efs), inf, dtype=x.dtype, device=dev)
     pool_i = torch.full((B, efs), n, dtype=i64, device=dev)
@@ -277,6 +357,7 @@ def search(x: torch.Tensor, nbrs: torch.Tensor, edges: torch.Tensor,
 
         nb = nbrs[c].reshape(B, L)
         ed = edges[c].reshape(B, L)
+        nx = xn[nb]
         st = status.gather(1, nb)
         ok = ((nb < n) & (st != VISITED)
               & live.repeat_interleave(M, dim=1))
@@ -293,13 +374,15 @@ def search(x: torch.Tensor, nbrs: torch.Tensor, edges: torch.Tensor,
         # CRouting (paper Algorithm 2): the tested slots' unvisited lanes,
         # with the pool full, skip the exact distance when the cosine-
         # theorem estimate reaches the pool bound
-        dcq = torch.sqrt(torch.clamp_min(dc, 0.0)).repeat_interleave(M, 1)
+        dcq = torch.sqrt(torch.clamp_min(rank_to_eu2(dc, nq, xn[c], metric),
+                                         0.0)).repeat_interleave(M, 1)
         tried = (first & (st == UNVISITED) & full[:, None] & (lane < lanes)
                  & prunes)
         cnt["est_calls"] += tried.sum(1)
         est2 = torch.clamp_min(ed * ed + dcq * dcq
                                - 2.0 * ed * dcq * cos_theta, 0.0)
-        prune = tried & (est2 >= upper[:, None])
+        prune = tried & (eu2_to_rank(est2, nq, nx, metric)
+                         >= upper[:, None])
         # error correction: a second lane of a pruned id computes it
         pruned_s = prune.gather(1, order)
         second_s = torch.zeros_like(ok)
@@ -323,9 +406,10 @@ def search(x: torch.Tensor, nbrs: torch.Tensor, edges: torch.Tensor,
             lb2 = torch.clamp_min(ad2 - 2.0 * (delta.abs()
                                                * sq8.eps.to(x.dtype)).sum(-1),
                                   0.0)
-            insert = compute & ~(full[:, None] & (lb2 >= upper[:, None]))
+            lb = eu2_to_rank(lb2, nq, nx, metric)
+            insert = compute & ~(full[:, None] & (lb >= upper[:, None]))
             cnt["sq8_calls"] += compute.sum(1)
-            new_d = torch.where(insert, ad2, inf)
+            new_d = torch.where(insert, eu2_to_rank(ad2, nq, nx, metric), inf)
         else:
             insert = compute
             new_d = torch.where(compute, exact(safe), inf)
@@ -370,11 +454,12 @@ def with_pad(x: torch.Tensor, nbrs: torch.Tensor, edges: torch.Tensor):
     return x, nbrs, edges
 
 
-def search_blocks(x, nbrs, edges, entry, queries, cos_theta, spec, sq8=None,
-                  block: int = 1024) -> Found:
+def search_blocks(x, nbrs, edges, entry, queries, cos_theta, spec, metric,
+                  sq8=None, block: int = 1024) -> Found:
     """``search`` over the queries in blocks (each query is independent)."""
     parts = [search(x, nbrs, edges, entry, queries[s: s + block], cos_theta,
-                    spec, sq8) for s in range(0, queries.shape[0], block)]
+                    spec, metric, sq8)
+             for s in range(0, queries.shape[0], block)]
     return Found(torch.cat([p.ids for p in parts]),
                  torch.cat([p.dists for p in parts]),
                  {c: torch.cat([p.counters[c] for p in parts])

@@ -12,16 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from perfbench import bench, harness
-from perfbench.conftest import CELLS, tiny
+from perfbench import bench, control, harness
+from perfbench.conftest import CELLS, metric_cases, tiny
 from repro_torch.core.index import AnnIndex
 
 ROOT = Path(__file__).resolve().parents[1]
 KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 
 
-def _run(name, trace=False, seconds=0.3, seed=2 ** 31 + 3):
-    return harness.run_cell(tiny(name), seed, seconds, trace,
+def _run(name, trace=False, seconds=0.3, seed=2 ** 31 + 3, metric=None):
+    return harness.run_cell(tiny(name, metric=metric), seed, seconds, trace,
                             torch.device("cpu"), time.perf_counter())
 
 
@@ -39,6 +39,91 @@ def test_a_tiny_run_is_correct_and_has_the_result_keys(name):
     for c in r["checks"].values():
         assert c["value"] <= c["limit"]
     json.dumps(r)
+
+
+def _spy_on_build(monkeypatch, metric=None):
+    """The metric of every graph the harness builds; with ``metric``, the
+    program is made to build under that metric whatever it is asked."""
+    built, build = [], AnnIndex.build.__func__
+
+    def spy(cls, base, **kw):
+        idx = build(cls, base, **{**kw, **({"metric": metric} if metric
+                                            else {})})
+        built.append(idx.graph.metric)
+        return idx
+    monkeypatch.setattr(AnnIndex, "build", classmethod(spy))
+    return built
+
+
+@pytest.mark.parametrize("name,metric", metric_cases(("ip", "cosine")))
+def test_a_tiny_run_under_ip_and_cosine_is_built_and_judged_under_it(
+        name, metric, monkeypatch):
+    """A configuration that states ``ip`` or ``cosine`` is built, searched
+    and judged under it.  Every number is within its limit but
+    ``angle_ks``: the program's profile under these metrics also samples
+    the expansion of each profile query's own row (PERF.md, section 7;
+    ``test_reference_equals_the_program_on_a_tiny_index`` pins it down)."""
+    built = _spy_on_build(monkeypatch)
+    r = _run(name, metric=metric)
+    assert built == [metric]
+    assert list(r)[:5] == KEYS and list(r)[-1] == "checks"
+    assert r["failed"] == 0 and r["attempted"] >= 48
+    assert r["metrics"]["recall_at_10"]["value"] > 0.5
+    over = {k for k, c in r["checks"].items() if c["value"] > c["limit"]}
+    assert over <= {"angle_ks"}, r["checks"]
+    assert r["correct"] is not over
+
+
+@pytest.mark.parametrize("name,metric", metric_cases(("ip", "cosine")))
+def test_a_program_built_under_l2_for_another_metric_is_not_correct(
+        name, metric, monkeypatch):
+    """The hole a harness blind to the metric leaves: an index built and
+    searched under ``l2`` where the configuration states ``ip`` or
+    ``cosine`` returns squared L2 distances, which the check's ranks
+    refuse."""
+    built = _spy_on_build(monkeypatch, metric="l2")
+    r = _run(name, metric=metric)
+    assert built == ["l2"]
+    assert r["correct"] is False
+    assert r["checks"]["dist_err"]["value"] > r["checks"]["dist_err"]["limit"]
+
+
+UNJUDGEABLE = {"metric": ((), "metric", "hamming"),
+               "graph": (("graph",), "kind", "hnsw"),
+               "router": (("search",), "router", "finger")}
+
+
+@pytest.mark.parametrize("what", UNJUDGEABLE)
+def test_a_cell_the_reference_cannot_judge_is_refused_before_set_up(
+        what, tmp_path, monkeypatch):
+    """A metric outside the three, a graph other than the exact K-NN graph
+    or a router the reference does not search with is refused as the cell
+    is loaded, and by ``run_cell`` and the control before any set-up."""
+    cell = tiny("sift1m.offline")
+    group, key, value = UNJUDGEABLE[what]
+    part = cell.config
+    for g in group:
+        part = part[g]
+    part[key] = value
+
+    def no_set_up(*a, **kw):
+        raise AssertionError("set-up began")
+    monkeypatch.setattr(harness.data, "make_inputs", no_set_up)
+    with pytest.raises(ValueError, match="cannot judge"):
+        harness.run_cell(cell, 1, 0.1, False, torch.device("cpu"),
+                         time.perf_counter())
+    with pytest.raises(ValueError, match="cannot judge"):
+        control.run_control(cell.config, 1, torch.device("cpu"))
+    (tmp_path / "perfbench" / "configs").mkdir(parents=True)
+    (tmp_path / "perfbench" / "configs" / "bad.json").write_text(
+        json.dumps(cell.config))
+    b = bench.load_benchmark()
+    b["configs"].append({"name": "bad", "source": ".", "reduced": [],
+                         "file": "perfbench/configs/bad.json", "why": "."})
+    b["workloads"].append({"name": "bad.offline", "config": "bad",
+                           "traffic": "offline", "chips": 1, "why": "."})
+    with pytest.raises(ValueError, match="cannot judge"):
+        bench.find_cell("bad.offline", b, repo=tmp_path)
 
 
 def _state_unchanged(orig):

@@ -4,6 +4,8 @@ from types import SimpleNamespace
 import pytest
 
 from perfbench import bench, tracing
+from perfbench import test_perfbench_program_counters as program
+from repro_torch import trace
 
 CFG = {"dim": 128, "graph": {"k": 32}, "search": {"k": 10}}
 TRACE = {"busy_s": 0.5, "window_s": 2.0, "kernels": 3000, "iters": 20,
@@ -16,7 +18,11 @@ RECORD = {
                "iters": [50, 52, 50, 52], "dist_calls": 80_000_000,
                "sq8_calls": 0, "hops": 0, "est_calls": 0, "rerank_calls": 0},
     "untraced": {"seconds": 18.0, "queries": 36_000},
-    "trace": TRACE}
+    "trace": TRACE,
+    # what the readers of the program's own counters take: its call log and
+    # totals (``repro_torch.trace``), loaded into the process by
+    # ``program_counters`` below
+    "program": {"calls": program.CALLS, "totals": program.TOTALS}}
 BYTES = (400_000 * 128 * 4 + 1000 * 128 + 10_000 * 32 * 8
          + 20_000 * (512 + 80))
 EXPECTED = {
@@ -26,9 +32,22 @@ EXPECTED = {
     # 0.5 s over 20,000 traced queries, 36,000 queries in 18 s untraced
     "device_idle_pct": 100.0 * (1.0 - 0.5 / 20_000 * 36_000 / 18.0),
     "device_busy_ms_per_batch": 250.0,
-    "search_roofline": 100.0 * BYTES / 3.35e12 / 0.5}
+    "search_roofline": 100.0 * BYTES / 3.35e12 / 0.5,
+    **program.EXPECTED}
 TRACED = ("kernels_per_iter", "device_idle_pct", "search_roofline",
           "device_busy_ms_per_batch")
+
+
+@pytest.fixture(autouse=True)
+def program_counters():
+    """The program's counters in this process: ``RECORD["program"]``."""
+    trace.reset()
+    for c in RECORD["program"]["calls"]:
+        trace.log_call(c)
+    for name, v in RECORD["program"]["totals"].items():
+        trace.add(name, v)
+    yield
+    trace.reset()
 
 
 def _metrics():
