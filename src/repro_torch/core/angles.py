@@ -1,13 +1,17 @@
 """Angle-distribution acquisition (paper §3.3, §4.1).
 
 A NumPy copy of ``repro.core.angles``: same samples and ``theta_star`` for
-the same graph and seed.
+the same graph and seed under ``l2``.  Under ``ip`` and ``cosine`` the
+angles' lengths come from the rows (``core/ref_search.py``), so a profile
+query's own row gives no samples, as the paper's Euclidean angles have it.
 
 After the graph is built, ``n_sample`` (default 0.1%·N) random queries are
 searched and, at every neighbor expansion (c, n), the angle
 theta = ∠(cq, cn) is recovered from the three exact Euclidean distances via
 the cosine theorem.  The pruning threshold theta* is a percentile (default
-90th, paper §5.5) of the collected distribution.
+90th, paper §5.5) of the collected distribution.  Each profile adds its
+queries and its samples to the totals ``profile.queries`` and
+``profile.samples`` (``repro_torch.trace``).
 
 Also provides the theoretical random-vector angle PDF (paper Eq. 3):
     P(eta) = Gamma(d/2) / (Gamma((d-1)/2) * sqrt(pi)) * sin^(d-2)(eta)
@@ -20,6 +24,7 @@ from typing import Optional
 import numpy as np
 from scipy.special import gammaln
 
+from repro_torch import trace
 from repro_torch.core.graph import GraphIndex
 from repro_torch.core.ref_search import search_ref
 
@@ -85,6 +90,8 @@ def sample_angle_profile(
     for q in queries:
         _, _, stats = search_ref(g, q, efs=efs, k=1, router=None, record_angles=True)
         angles.extend(stats.angles)
+    trace.add("profile.queries", len(queries))
+    trace.add("profile.samples", len(angles))
     samples = np.asarray(angles, dtype=np.float64)
     if samples.size == 0:
         samples = np.asarray([np.pi / 2])

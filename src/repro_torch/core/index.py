@@ -112,8 +112,8 @@ class AnnIndex:
                ) -> Tuple[np.ndarray, np.ndarray, SearchStats]:
         """Batched search.  Returns (ids [B,k], dists [B,k], SearchStats);
         the stats carry dist_calls, est_calls, rerank_calls, sq8_calls,
-        hops and the router's own counters (``extra``) per query and the
-        batch's iters.
+        hops, pruned, first_stage and the router's own counters
+        (``extra``) per query and the batch's iters.
 
         ``spec``'s ``metric`` and ``use_hierarchy`` are overridden from the
         graph, and ``cos_theta=None`` resolves to the sampled angle profile.
@@ -142,7 +142,9 @@ class AnnIndex:
         for this graph and ``engine_spec(spec)``, held by the caller (a
         serving session): the engine cache's eviction cannot make such a
         call set an engine up again.  An engine of another spec raises
-        ``ValueError``."""
+        ``ValueError``.  The call's pruned and first-stage lanes add to the
+        totals ``search.pruned`` and ``search.first_stage``
+        (``repro_torch.trace``)."""
         if fn.graph_ref() is not self.graph or \
                 fn.cfg != self.engine_spec(spec).canonical():
             raise ValueError("search_on: the engine was built for another "
@@ -171,6 +173,8 @@ class AnnIndex:
             ids[pad] = -1
             dists[pad] = np.inf
             stats = SearchStats.from_result(res, router=spec.router)
+        trace.add("search.pruned", int(stats.pruned.sum()))
+        trace.add("search.first_stage", int(stats.first_stage.sum()))
         return ids, dists, stats
 
     # --- persistence ----------------------------------------------------------

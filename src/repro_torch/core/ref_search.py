@@ -1,7 +1,11 @@
 """Faithful scalar reference of the paper's Algorithm 1 / Algorithm 2 (NumPy).
 
 A NumPy copy of ``repro.core.ref_search``; the port needs it for the angle
-profile (core/angles.py).
+profile (core/angles.py).  One difference: under ``ip`` and ``cosine`` the
+recorded angles take |c - q| and |n - q| from the rows, where the JAX copy
+converts the float32 ranks back (``_rank_to_eu``), which leaves ~1e-4 for
+the 0 of a profile query's own row and so samples that row's expansion.
+Under ``l2`` the samples are the JAX copy's, byte for byte.
 
 This is the oracle the batched engine (core/search.py) is tested against:
 two priority queues (candidate queue C, top-results queue T), per-node
@@ -57,6 +61,12 @@ def _eu_to_rank(eu, nq, nx, metric):
     return (eu * eu - nx * nx - nq * nq + 2.0) / 2.0
 
 
+def _eu_rows(q, x):
+    """|q - x| from the rows, in float64."""
+    diff = x.astype(np.float64) - q
+    return float(np.sqrt(np.dot(diff, diff)))
+
+
 def greedy_search_ref(
     g: GraphIndex,
     q: np.ndarray,
@@ -104,6 +114,10 @@ def greedy_search_ref(
         stats.hops += 1
         nx_c = float(norms[c]) if norms is not None else 1.0
         d_cq_eu = _rank_to_eu(dc, nq, nx_c, metric)
+        # the angles' lengths: under ip/cosine from the rows, since a float32
+        # rank converted back leaves ~1e-4 where c is the query's own row
+        d_cq_ang = (_eu_rows(q, vecs[c]) if record_angles and metric != "l2"
+                    else d_cq_eu)
         frozen_upper = upper
         frozen_full = len(T) >= efs
 
@@ -155,10 +169,11 @@ def greedy_search_ref(
             status[nid] = STATUS_VISITED
             stats.visited_ids.add(nid)
             dn = exact(nid)
-            if record_angles and np.isfinite(d_cn_eu) and d_cn_eu > 1e-9 and d_cq_eu > 1e-9:
-                nx_n = float(norms[nid]) if norms is not None else 1.0
-                d_nq_eu = _rank_to_eu(dn, nq, nx_n, metric)
-                cosv = (d_cq_eu**2 + d_cn_eu**2 - d_nq_eu**2) / (2.0 * d_cq_eu * d_cn_eu)
+            if (record_angles and np.isfinite(d_cn_eu) and d_cn_eu > 1e-9
+                    and d_cq_ang > 1e-9):
+                d_nq_eu = (_rank_to_eu(dn, nq, 1.0, metric) if metric == "l2"
+                           else _eu_rows(q, vecs[nid]))
+                cosv = (d_cq_ang**2 + d_cn_eu**2 - d_nq_eu**2) / (2.0 * d_cq_ang * d_cn_eu)
                 stats.angles.append(float(np.arccos(np.clip(cosv, -1.0, 1.0))))
             if dn < upper or len(T) < efs:
                 heapq.heappush(C, (dn, nid))

@@ -33,6 +33,9 @@ and an ``approx`` flag; stage 2 (the fp32 row and exact distance,
 entry is picked for expansion, and for every approximate entry left in the
 pool at the end.  ``SearchResult.rerank_calls`` counts stage-2 evaluations
 (they also count as ``dist_calls``), ``sq8_calls`` stage-1 evaluations.
+``pruned`` counts the lanes the router pruned (one reduction an
+iteration), ``first_stage`` the loop's lanes that took a first-stage
+distance: exact fp32, or stage 1 on the two-stage path.
 
 The loop's condition (some query not done, fewer than ``max_hops``
 iterations) is read on the host once per iteration, and
@@ -111,10 +114,14 @@ class SearchResult(NamedTuple):
     # per-router [B] int32 counters (Router.extra_counters), e.g. finger's
     # finger_est_calls
     extra: Dict[str, torch.Tensor]
+    pruned: torch.Tensor        # [B] int32 lanes the router pruned
+    # [B] int32 hop-loop lanes that took a first-stage distance: exact fp32
+    # (estimate exact/angle) or the SQ8 stage 1 (sq8/both)
+    first_stage: torch.Tensor
 
 
 _RESULT_TENSORS = ("ids", "dists", "dist_calls", "est_calls", "hops",
-                   "rerank_calls", "sq8_calls")
+                   "rerank_calls", "sq8_calls", "pruned", "first_stage")
 
 
 def graph_device_arrays(g: GraphIndex, device: DeviceLike = None) -> Dict[str, Any]:
@@ -297,8 +304,8 @@ class _HopState:
         self.pool_apx = empty(B, efs, dtype=torch.bool)
         self.status = empty(B, n + 1, dtype=torch.uint8)
         self.done = empty(B, dtype=torch.bool)
-        (self.dcalls, self.ecalls, self.rrcalls, self.sqcalls,
-         self.hops) = (empty(B, dtype=_I32) for _ in range(5))
+        (self.dcalls, self.ecalls, self.rrcalls, self.sqcalls, self.hops,
+         self.pruned) = (empty(B, dtype=_I32) for _ in range(6))
         # per-router counters (registry-declared, see Router.extra_counters)
         self.extras = {name: empty(B, dtype=_I32) for name in extra_names}
 
@@ -307,7 +314,7 @@ class _HopState:
         """The bytes ``_HopState(B, d, efs, n, L, M, extra_names, dev)``
         allocates, known before it does."""
         return (B * (n + 1) + B * (4 * d + 4 + 10 * efs + 1)
-                + 4 * B * (5 + len(extra_names)) + L)
+                + 4 * B * (6 + len(extra_names)) + L)
 
     def start(self, queries, nq, entry, d_entry, calls0, valid, n):
         """A call's starting values, written in place: the pool holds
@@ -332,7 +339,7 @@ class _HopState:
             torch.logical_not(valid, out=self.done)
             self.dcalls.copy_(torch.where(valid, calls0, 0))
         for t in (self.ecalls, self.rrcalls, self.sqcalls, self.hops,
-                  *self.extras.values()):
+                  self.pruned, *self.extras.values()):
             t.zero_()
 
 
@@ -552,6 +559,8 @@ class _Hop:
         # value to the pad column, so the scatter stays deterministic -------
         ph.to("hop.status")
         change = compute | prune
+        if rt.prunes:
+            s.pruned += prune.sum(1, dtype=_I32)
         if rt.permanent:
             new_st = torch.full_like(st, STATUS_VISITED)
         else:
@@ -865,8 +874,12 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
 
         ph.to("search.final")
         pool_d, pool_id = s.pool_d, s.pool_id
-        dcalls, ecalls, rrcalls, sqcalls, hops, extras = (
-            s.dcalls, s.ecalls, s.rrcalls, s.sqcalls, s.hops, s.extras)
+        dcalls, ecalls, rrcalls, sqcalls, hops, pruned, extras = (
+            s.dcalls, s.ecalls, s.rrcalls, s.sqcalls, s.hops, s.pruned,
+            s.extras)
+        # the loop's first-stage lanes: stage 1 on the sq8 path, else every
+        # exact distance but the entry's (and the descent's)
+        first = sqcalls if hop.sq8_on else dcalls - calls0
         if tombstone is not None:
             # emission-time masking: dead entries routed normally; here they
             # collapse to the pad sentinel, so neither the final rerank nor
@@ -887,14 +900,15 @@ def _search_batch(arrays, queries, cos_theta, cfg: SearchSpec, valid=None,
             order = _lexsort_dist_id(pool_d, pool_id)
             pool_d, pool_id = pool_d.gather(1, order), pool_id.gather(1, order)
         if valid is not None:
-            dcalls, ecalls, rrcalls, sqcalls, hops = (
+            dcalls, ecalls, rrcalls, sqcalls, hops, pruned, first = (
                 torch.where(valid, a, 0)
-                for a in (dcalls, ecalls, rrcalls, sqcalls, hops))
+                for a in (dcalls, ecalls, rrcalls, sqcalls, hops, pruned,
+                          first))
             extras = {k: torch.where(valid, v, 0) for k, v in extras.items()}
         res = SearchResult(ids=pool_id, dists=pool_d, dist_calls=dcalls,
                            est_calls=ecalls, hops=hops, iters=iters,
                            rerank_calls=rrcalls, sq8_calls=sqcalls,
-                           extra=extras)
+                           extra=extras, pruned=pruned, first_stage=first)
         if slot is not None:
             # the shape's state is the next call's to overwrite
             res = res._replace(

@@ -176,6 +176,9 @@ def _host(x) -> np.ndarray:
 
 # the per-query [B] counters of SearchStats, in summary() order
 _COUNTERS = ("dist_calls", "est_calls", "rerank_calls", "sq8_calls", "hops")
+# the hop loop's lane counters, which the sharded path leaves 0 and
+# summary() leaves out (it is the JAX package's digest)
+_LANE_COUNTERS = ("pruned", "first_stage")
 
 
 @dataclasses.dataclass
@@ -185,7 +188,8 @@ class SearchStats:
     reduced over the shards (``iters`` the maximum over shards, the
     straggler's count).  ``extra`` holds per-router counters in
     registry-declared order (``Router.extra_counters``, e.g. the finger
-    router's ``finger_est_calls``)."""
+    router's ``finger_est_calls``).  ``pruned`` and ``first_stage`` are
+    the single-index path's alone: the sharded path leaves them 0."""
 
     dist_calls: np.ndarray       # exact fp32 distance evaluations
     est_calls: np.ndarray        # router estimate evaluations
@@ -199,16 +203,29 @@ class SearchStats:
     # shards still resolves, with the survivors' pool and these fields set
     shards_failed: int = 0
     degraded: bool = False
+    # lanes the router pruned, and the hop loop's lanes that took a
+    # first-stage distance (exact fp32, or SQ8's stage 1)
+    pruned: np.ndarray = 0
+    first_stage: np.ndarray = 0
 
     @classmethod
     def from_result(cls, res, router: str = "none") -> "SearchStats":
-        """Build from an engine ``SearchResult`` (device tensors -> host)."""
-        return cls(dist_calls=_host(res.dist_calls),
-                   est_calls=_host(res.est_calls),
-                   rerank_calls=_host(res.rerank_calls),
-                   sq8_calls=_host(res.sq8_calls), hops=_host(res.hops),
-                   iters=int(res.iters), router=router,
-                   extra={k: _host(v) for k, v in res.extra.items()})
+        """Build from an engine ``SearchResult``: its ``[B]`` counters come
+        to the host in one copy."""
+        names = _COUNTERS + _LANE_COUNTERS
+        host = _host(torch.stack([getattr(res, f) for f in names]
+                                 + list(res.extra.values())))
+        return cls(**dict(zip(names, host)), iters=int(res.iters),
+                   router=router,
+                   extra=dict(zip(res.extra, host[len(names):])))
+
+    def rows(self, lo: int, hi: int) -> "SearchStats":
+        """The per-query counters of queries ``lo:hi``."""
+        s = slice(lo, hi)
+        return dataclasses.replace(
+            self, **{f: getattr(self, f)[s]
+                     for f in _COUNTERS + _LANE_COUNTERS},
+            extra={k: v[s] for k, v in self.extra.items()})
 
     @classmethod
     def merge(cls, stats_list) -> "SearchStats":
@@ -231,7 +248,7 @@ class SearchStats:
         keys = set().union(*(s.extra for s in stats_list))
         return cls(
             **{f: comb([getattr(s, f) for s in stats_list])
-               for f in _COUNTERS},
+               for f in _COUNTERS + _LANE_COUNTERS},
             iters=max(int(s.iters) for s in stats_list),
             router=stats_list[0].router,
             extra={k: comb([s.extra[k] for s in stats_list if k in s.extra])

@@ -89,12 +89,7 @@ class SingleIndexSession:
 
     def stats_for_rows(self, stats: SearchStats, lo: int, hi: int
                        ) -> SearchStats:
-        s = slice(lo, hi)
-        return dataclasses.replace(
-            stats, dist_calls=stats.dist_calls[s], est_calls=stats.est_calls[s],
-            rerank_calls=stats.rerank_calls[s], sq8_calls=stats.sq8_calls[s],
-            hops=stats.hops[s],
-            extra={kk: v[s] for kk, v in stats.extra.items()})
+        return stats.rows(lo, hi)
 
 
 class ShardedIndexSession:

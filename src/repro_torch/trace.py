@@ -6,8 +6,12 @@ Counters are always on:
   product and selection on the device (``knn.product_s``,
   ``knn.select_s``: ``core/knn_graph.py``) and the SQ8 set-up on the host
   (``engine.sq8_s``: ``core/search.py``'s ``ensure_sq8_arrays``), in
-  seconds, and the hop iterations captured as CUDA graphs
-  (``search.graph_captures``, a count);
+  seconds, and counts: the hop iterations captured as CUDA graphs
+  (``search.graph_captures``), the lanes the router pruned and the lanes
+  that took a first-stage distance, exact or SQ8 (``search.pruned``,
+  ``search.first_stage``: ``core/index.py``'s ``search_on``), and the angle
+  profile's queries and samples (``profile.queries``, ``profile.samples``:
+  ``core/angles.py``);
 * a log of the last ``CALL_LOG_MAX`` search engine calls (``calls``), one
   ``Call`` each: its rows and hop-loop iterations, how many of those were
   replays of a captured graph (``graph_iters``), the loop's host time

@@ -1,7 +1,9 @@
 """The port's sharded index against the JAX package's.
 
 ``shard_dataset`` must give the reference's arrays bit for bit (HNSW, l2
-and ip, three shards with a short last one).  The reference
+and ip, three shards with a short last one), and the reference's
+threshold under l2; under ip the port's profile leaves out the samples of
+each profile query's own row, which the reference's takes.  The reference
 ``ShardedAnnIndex`` (``engine="jnp"``) runs in a subprocess with four host
 devices (``--xla_force_host_platform_device_count`` must be set before JAX
 starts), on ``make_dataset(1200, n_query=24, dim=32, seed=5)``'s first
@@ -13,6 +15,7 @@ crouting W1, W4, W4 ``both``, ``max_hops=8`` and a bucket-padded batch.
 The merge, the request-only fields, the finger rejection, serving behind
 the frontend and the ``SearchStats`` repair are checked besides.
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -22,12 +25,14 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core.angles import sample_angle_profile as j_profile
+from repro.core.graph import GraphIndex as JGraph
 from repro.core.spec import SearchStats as JStats
 
 from repro_torch.core.search import _search_batch
 from repro_torch.core.sharded_index import (ShardedAnnIndex,
-                                            ShardedIndexArrays, shard_dataset,
-                                            shard_tensors)
+                                            ShardedIndexArrays, build_shards,
+                                            shard_dataset, shard_tensors)
 from repro_torch.core.spec import SearchSpec, SearchStats
 from repro_torch.data.vectors import make_dataset
 from repro_torch.launch.mesh import make_local_mesh
@@ -137,13 +142,42 @@ def port_index(ref):
                            spec=SearchSpec(**BASE))
 
 
+def _own_rows_left_out(got, want, queries, degree):
+    """Each of ``got``'s angle samples has its own in ``want``, their
+    cosines equal to 1e-5, and at most a degree of ``want``'s samples a
+    profile query are left over: the expansions of the queries' own rows,
+    which the reference's profile samples under ``ip`` and the port's
+    does not (``repro_torch.core.ref_search``)."""
+    got, want = np.sort(np.cos(got)), np.sort(np.cos(want))
+    j = 0
+    for v in want:
+        if j < len(got) and abs(v - got[j]) <= 1e-5:
+            j += 1
+    assert j == len(got)
+    assert 0 < len(want) - len(got) <= queries * degree
+
+
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_shard_dataset_equals_the_reference(ds, ref, metric):
     got = shard_dataset(ds.base[:N_ROWS], N_SHARDS, metric=metric,
                         graph="hnsw", m=8, efc=48)
     want = ref_arrays(ref, metric)
     assert got.ns == want.ns == 397 and got.metric == metric
-    assert got.cos_theta == want.cos_theta
+    if metric == "l2":
+        assert got.cos_theta == want.cos_theta
+    else:
+        # the threshold is the median of the shards' own profiles, each the
+        # reference's samples less those of the profile queries' own rows
+        graphs, profiles = build_shards(ds.base[:N_ROWS], N_SHARDS,
+                                        metric=metric, graph="hnsw", m=8,
+                                        efc=48)
+        assert got.cos_theta == float(np.median(
+            [p.cos_theta_star for p in profiles]))
+        for g, p in zip(graphs, profiles):
+            jp = j_profile(JGraph(**dataclasses.asdict(g)), seed=0)
+            assert p.n_sample_queries == jp.n_sample_queries
+            _own_rows_left_out(p.samples, jp.samples, p.n_sample_queries,
+                               g.max_degree)
     for f in FIELDS:
         a, b = getattr(got, f), getattr(want, f)
         assert a.dtype == b.dtype and np.array_equal(a, b), f
