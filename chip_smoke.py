@@ -7,7 +7,7 @@
 
 Phases, each printing one JSON line:
 
-1. ``build``   — compile the seven CUDA kernels (src/repro_torch/csrc/*.cu)
+1. ``build``   — compile the eight CUDA kernels (src/repro_torch/csrc/*.cu)
    with nvcc, one process per source started at once, into
    build/repro_torch/.
 2. ``kernels`` — hold each kernel against its plain PyTorch version on the
@@ -44,7 +44,11 @@ Phases, each printing one JSON line:
    segments, a GNN aggregation's S ~ N ~ 170k, one hot id holding half of
    65,536 rows; d in {1, 64, 128, 960}; fp32 and bf16) must be bit-equal
    to its plain version on CPU copies, the call given the ids and the call
-   given their runs bit-equal, one counted launch a call.
+   given their runs bit-equal, one counted launch a call; ``normalize_rows``
+   (``check_normalize_rows``: d in {16, 128, 1536, 1537, 3000} with a zero
+   row; B = 1, 7 and 10,000 rows at d 1536, in place and off 16-byte
+   alignment) bit-equal to its plain version on CPU copies, one counted
+   launch a call.
 2b. ``lm``    — the LM family (``repro_torch.models.transformer``; plain
    PyTorch and cuBLAS, and ``segment_sum`` for the token embedding's
    backward; none of the six search kernels: their counts must stay 0).
@@ -208,6 +212,16 @@ Phases, each printing one JSON line:
    index with ``metric="ip"`` (m=16, efc=96) over 10k candidates drawn as
    the example draws them, searched at k=100, efs=200 with every spec of
    ``IP_SPECS`` on its engines (recall@100 against brute force).
+7b. ``cosine`` — a cosine index's query batches on the card
+   (``cosine_phase``): a K-NN index (k 64) under ``metric="cosine"`` over
+   50,000 rows of d 1,536 and intrinsic dimension 32, searched through
+   ``AnnIndex.search`` at the dbpedia500k cell's batch (10,000
+   unnormalised rows, crouting W 4, efs 128) three times:
+   ``normalize_rows`` launches once a call (these launches are the
+   kernel table's count), ``search.normalised_rows`` grows by 10,000 a
+   call, the engine's set-up holds the library before the first call, and
+   recall@10 is above 0.5 and that of the engine fed host-normalised rows
+   within 1e-3.
 8. ``timing``  — each kernel, its plain version and its bound on inputs
    captured from the knn_1m main path: fused_expand and pool_merge at W=4
    (the router hook decides the prunes) and W=1 (the kernel does), and on
@@ -240,6 +254,10 @@ Phases, each printing one JSON line:
    alone (int32 and int64 keys), the device time with the run-start
    grid's zeroing, and the chain bound (the longest run times the card's
    dependent add, ``add_chain``: a one-thread chain of 10^6 adds).
+   ``normalize_rows`` at a cosine cell's query batch, [10,000, 1,536],
+   behind the L2 flush, beside ``torch.nn.functional.normalize`` and the
+   host's NumPy pass it replaced (``numpy_ms``, host clock) and the
+   batch's pageable upload (``upload_ms``).
 
 For phases 3, 4, 4c, 6 and the index of 7 each kernel engine must launch
 exactly the kernels its (engine, spec) runs (``expected_kernels``; every
@@ -1048,6 +1066,58 @@ def check_segment_sum(dev):
                              "launches_a_call": launches / 2})
     return {"cases": len(rows), "all_bit_equal": True,
             "rows": rows[:: len(SEG_DIMS) * 2]}
+
+
+# --- normalize_rows: a cosine index's query rows, normalised on the card ----
+NORM_DIMS = (16, 128, 1536, 1537, 3000)   # 1537 and 3000: two sweeps
+
+
+def norm_rows(rng, n, d):
+    """Rows whose norms span six decades; row 1 is zero."""
+    import numpy as np
+    import torch
+    x = rng.standard_normal((n, d)) * np.logspace(-3, 3, n)[:, None]
+    x[1] = 0.0
+    return torch.as_tensor(x.astype(np.float32))
+
+
+def check_normalize_rows(dev):
+    """The kernel against its plain version on CPU copies, bit for bit, at
+    B = 700 for d in ``NORM_DIMS``; at d 1536, rows of a 10,000-row batch
+    equal alone (B = 1), in 7s, in place and off a 16-byte boundary (the
+    scalar loads); one counted launch a call."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import normalize_rows as K
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(9)
+    rows = []
+    for d in NORM_DIMS:
+        x = norm_rows(rng, 700, d)
+        before = K.LAUNCHES["normalize_rows"]
+        got = K.normalize_rows(x.to(dev))
+        torch.cuda.synchronize()
+        launches = K.LAUNCHES["normalize_rows"] - before
+        same = bit_equal(got.cpu(), ref.normalize_rows_ref(x))
+        check(same and launches == 1, f"normalize_rows d={d}: plain-equal "
+              f"{same}, {launches} launches for 1 call")
+        rows.append({"B": 700, "d": d, "bit_equal": True, "launches": 1})
+    big = norm_rows(rng, 10_000, 1536).to(dev)
+    full = K.normalize_rows(big)
+    same_rows = all(bit_equal(K.normalize_rows(big[i:i + b].clone()),
+                              full[i:i + b])
+                    for i, b in ((0, 1), (4321, 1), (3, 7), (9993, 7)))
+    flat = torch.empty(big.numel() + 1, device=dev)
+    off = flat[1:].view(big.shape)
+    off.copy_(big)
+    same_off = bit_equal(K.normalize_rows(off, out=off), full)
+    inplace = big.clone()
+    same_in = bit_equal(K.normalize_rows(inplace, out=inplace), full)
+    torch.cuda.synchronize()
+    check(same_rows and same_off and same_in,
+          f"normalize_rows at B=10000, d=1536: rows alone equal {same_rows}, "
+          f"off 16 bytes {same_off}, in place {same_in}")
+    return {"cases": len(rows) + 3, "all_bit_equal": True, "rows": rows}
 
 
 def nondeterministic_ops(fn):
@@ -3787,6 +3857,83 @@ def retrieval_phase(dev, main_launches, captures):
     return cands, queries, idx, qs
 
 
+# --- the cosine phase: a cosine index's query batches through search_on -------
+COS_BASE, COS_QUERIES, COS_DIM, COS_CALLS = 50_000, 10_000, 1536, 3
+
+
+def cosine_phase(dev, main_launches):
+    """A K-NN cosine index at the dbpedia500k cell's width (d 1,536; its
+    rows cut to ``COS_BASE``; rows of intrinsic dimension 32, as
+    embeddings have few, so that the search finds their neighbours) searched through ``AnnIndex.search`` (so
+    ``search_on``) at the cell's batch, [10,000, 1,536] unnormalised
+    float32, ``COS_CALLS`` times: ``normalize_rows`` must launch once a
+    call and ``search.normalised_rows`` grow by the batch's rows; the
+    engine's library load falls in set-up (the library is held before the
+    first call); the ids' recall@10 is above 0.5 and equals, within 1e-3,
+    that of the same engine fed the rows normalised on the host."""
+    import numpy as np
+    import torch
+    from repro_torch import trace
+    from repro_torch.core import distances as D
+    from repro_torch.core.angles import sample_angle_profile
+    from repro_torch.core.index import AnnIndex
+    from repro_torch.core.search import build_search_fn
+    from repro_torch.core.spec import SearchSpec
+    from repro_torch.data.vectors import recall_at_k
+    from repro_torch.kernels import build
+    from repro_torch.kernels import normalize_rows as K
+    rng = np.random.default_rng(30)
+    mix = rng.standard_normal((32, COS_DIM)).astype(np.float32)
+    base = rng.standard_normal((COS_BASE, 32)).astype(np.float32) @ mix
+    queries = rng.standard_normal((COS_QUERIES, 32)).astype(np.float32) @ mix
+    t0 = time.perf_counter()
+    idx = AnnIndex.build(base, graph="knn", k=64, metric="cosine",
+                         profile=False, device=dev)
+    idx.profile = sample_angle_profile(idx.graph, n_sample=64, seed=0)
+    torch.cuda.synchronize()
+    build_secs = time.perf_counter() - t0
+    unit = torch.as_tensor(D.preprocess_vectors(base, "cosine"), device=dev)
+    unit_q = D.preprocess_vectors(queries, "cosine")
+    gt = torch.topk(torch.as_tensor(unit_q, device=dev) @ unit.T, 10,
+                    dim=1).indices.cpu().numpy()
+    del unit
+    spec = SearchSpec(k=10, efs=128, router="crouting", beam_width=4)
+    _, fn = build_search_fn(idx.graph, idx.engine_spec(spec), device=dev)
+    with build._lock:
+        loaded = "normalize_rows" in build._LIBS
+    check(loaded, "cosine: setting up a CUDA cosine engine did not load "
+          "normalize_rows")
+    idx.search(queries, spec)                       # the warm call
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    rows0 = trace.totals().get("search.normalised_rows", 0)
+    secs = []
+    for _ in range(COS_CALLS):
+        t0 = time.perf_counter()
+        ids, _, _ = idx.search(queries, spec)
+        secs.append(time.perf_counter() - t0)
+    launches = K.LAUNCHES["normalize_rows"]
+    rows = trace.totals().get("search.normalised_rows", 0) - rows0
+    check(launches == COS_CALLS and rows == COS_CALLS * COS_QUERIES,
+          f"cosine: {launches} normalize_rows launches and {rows} rows "
+          f"normalised for {COS_CALLS} calls of {COS_QUERIES} rows")
+    main_launches["normalize_rows"] = (main_launches.get("normalize_rows", 0)
+                                       + launches)
+    res = fn(unit_q, idx.profile.cos_theta_star)
+    host_ids = res.ids[:, :10].cpu().numpy().astype(np.int64)
+    card, host = recall_at_k(ids, gt, 10), recall_at_k(host_ids, gt, 10)
+    check(card > 0.5 and abs(card - host) <= 1e-3,
+          f"cosine: recall@10 {card} with the rows normalised on the card, "
+          f"{host} on the host")
+    emit({"phase": "cosine", "n": COS_BASE, "dim": COS_DIM, "graph": "knn",
+          "k": 64, "queries": COS_QUERIES, "build_secs": build_secs,
+          "calls": COS_CALLS, "normalize_rows_launches": launches,
+          "normalised_rows": rows, "call_secs": secs,
+          "recall_card": card, "recall_host": host,
+          "cuts": "dbpedia500k's 500,000 rows -> 50,000; profile from 64 "
+                  "sampled searches"})
+
+
 WRAPPERS = ("fused_expand", "pool_merge", "sq8_estimate",
             "gather_distance_where", "crouting_prune")
 
@@ -3876,7 +4023,9 @@ KERNEL_FILES = {
     "crouting_prune": "src/repro/kernels/crouting_prune.py:54",
     "l2_distance": "src/repro/kernels/l2_distance.py:65",
     # no Pallas kernel: where the reference sums rows by id (XLA scatter-add)
-    "segment_sum": "src/repro/models/dlrm.py:104"}
+    "segment_sum": "src/repro/models/dlrm.py:104",
+    # no Pallas kernel: where the reference normalises cosine rows (NumPy)
+    "normalize_rows": "src/repro/core/distances.py:110"}
 NO_LIBRARY_CALL = {
     "fused_expand": "no single PyTorch call: a row gather under a computed "
                     "prune mask, then a distance",
@@ -4228,7 +4377,8 @@ def timing_phase(captures, main_launches, cands, queries):
         "l2_distance": [time_l2_distance(queries[:1], cands),
                         time_l2_distance(queries, cands),
                         time_l2_distance(queries[:8], cands[:8192], flush)],
-        "segment_sum": time_segment_sum()}
+        "segment_sum": time_segment_sum(),
+        "normalize_rows": [time_normalize_rows(flush)]}
     emit({"phase": "timing", "kernels": rows,
           "l2_crossover": l2_crossover(cands, queries, flush),
           "event_floor": event_floor_ms()})
@@ -4545,6 +4695,53 @@ def time_segment_sum():
     return out
 
 
+def time_normalize_rows(flush):
+    """``normalize_rows`` at a cosine cell's query batch (the
+    ``dbpedia500k`` cell: [10,000, 1,536] float32) behind the L2 flush,
+    into a separate output so that every launch reads the same rows;
+    ``bound_ms`` counts the rows read and written once.  Beside it:
+    ``torch.nn.functional.normalize`` (the same formula in one PyTorch call,
+    as the yardstick; the port never calls it), the host's NumPy pass that
+    the kernel took off the batch path (``numpy_ms``, host clock, median of
+    5) and the batch's pageable upload (``upload_ms``, host clock around a
+    synchronised copy, median of 5)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import distances as D
+    from repro_torch.kernels import normalize_rows as K
+    from repro_torch.kernels import ref
+    B, d = 10_000, 1536
+    host = norm_rows(np.random.default_rng(10), B, d).numpy()
+    x = torch.as_tensor(host, device="cuda")
+    out = torch.empty_like(x)
+    got = K.normalize_rows_cuda(x, out).cpu()
+    want = ref.normalize_rows_ref(torch.as_tensor(host))
+    check(bit_equal(got, want), "normalize_rows timing inputs: the kernel "
+          "differs from its plain version")
+    row = timed_row(
+        "normalize_rows", lambda: K.normalize_rows_cuda(x, out),
+        lambda: ref.normalize_rows_ref(x), 2 * B * d * 4, 3 * B * d, 0.0,
+        f"a cosine query batch: [{B}, {d}] float32", flush=flush,
+        library=lambda: torch.nn.functional.normalize(x, dim=1),
+        library_note="torch.nn.functional.normalize(x, dim=1) (the same "
+                     "formula; the port never calls it)")
+
+    def host_ms(fn):
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    row["numpy_ms"] = host_ms(lambda: D.preprocess_vectors(host, "cosine"))
+    row["upload_ms"] = host_ms(lambda: (torch.as_tensor(host, device="cuda"),
+                                        torch.cuda.synchronize()))
+    row["replaces_note"] = ("no Pallas kernel: the reference normalises a "
+                            "cosine index's rows on the host in NumPy "
+                            "(preprocess_vectors)")
+    return row
+
+
 def profile_batch(idx, queries, spec):
     """Device time by kernel for one batch (torch.profiler) and the share
     of the batch's wall time the device was busy."""
@@ -4670,7 +4867,8 @@ def main() -> int:
           "gather_distance": check_gather_distance(rng, dev),
           "crouting_prune": check_crouting_prune(rng, dev),
           "l2_distance": check_l2_distance(dev),
-          "segment_sum": check_segment_sum(dev)})
+          "segment_sum": check_segment_sum(dev),
+          "normalize_rows": check_normalize_rows(dev)})
     # 2b. the LM family: granite-8b serving, granite-moe training, launcher
     lm_rows, lm_seg = lm_phase(dev)
     # 2c. the GNN family, DLRM training, the quickstart example
@@ -4765,6 +4963,8 @@ def main() -> int:
     profiles["retrieval_ip_W4_fused"] = profile_batch(
         ip_idx, ip_queries, SearchSpec(**IP_SPECS["ip_W4"]))
     emit({"phase": "profile", **profiles})
+    # 7b. cosine: the dbpedia500k cell's batch through search_on
+    cosine_phase(dev, main_launches)
 
     # 8. kernels on captured main-path inputs
     kernels = timing_phase(captures, main_launches, cands, queries)

@@ -15,7 +15,8 @@ monotone, so ranking by the square is equivalent and cheaper).
 
 The ``Metric`` callables take torch tensors; ``preprocess_vectors``,
 ``pairwise_np`` and ``rank_to_eu_np`` are the NumPy construction-time
-twins, byte-equal to the JAX package's.
+twins, byte-equal to the JAX package's.  ``prepare_queries`` decides where
+a query batch is preprocessed: on the card or on the host.
 """
 from __future__ import annotations
 
@@ -24,6 +25,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from repro_torch import trace
+from repro_torch.kernels.normalize_rows import normalize_rows
 
 METRICS = ("l2", "ip", "cosine")
 
@@ -126,6 +130,27 @@ def preprocess_vectors(x: np.ndarray, metric: str) -> np.ndarray:
         n = np.linalg.norm(x, axis=-1, keepdims=True)
         return (x / np.maximum(n, 1e-12)).astype(x.dtype)
     return x
+
+
+def prepare_queries(queries, metric: str, dev=None):
+    """A query batch as a search engine on ``dev`` takes it: float32 rows
+    preprocessed for ``metric``.
+
+    On a CUDA ``dev`` under ``cosine`` the rows are uploaded as they are
+    (span ``search.normalise``) and the ``normalize_rows`` kernel normalises
+    them in place; the batch's rows add to the total
+    ``search.normalised_rows`` and the result is the device tensor.
+    Otherwise, and for callers that read the rows on the host (``dev``
+    None: the live index's delta scan, the sharded index's per-shard
+    uploads), ``preprocess_vectors`` on a contiguous float32 array."""
+    queries = np.ascontiguousarray(queries, np.float32)
+    if metric != "cosine" or dev is None or torch.device(dev).type != "cuda":
+        return preprocess_vectors(queries, metric)
+    with trace.span("search.normalise"):
+        q = torch.as_tensor(queries, device=dev)
+        normalize_rows(q, out=q)
+    trace.add("search.normalised_rows", q.shape[0])
+    return q
 
 
 def pairwise_np(q: np.ndarray, x: np.ndarray, metric: str) -> np.ndarray:

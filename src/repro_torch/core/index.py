@@ -144,13 +144,17 @@ class AnnIndex:
         call set an engine up again.  An engine of another spec raises
         ``ValueError``.  The call's pruned and first-stage lanes add to the
         totals ``search.pruned`` and ``search.first_stage``
-        (``repro_torch.trace``)."""
+        (``repro_torch.trace``).
+
+        A cosine graph's queries are normalised where the engine runs
+        (``distances.prepare_queries``): on the card by the
+        ``normalize_rows`` kernel, counted in ``search.normalised_rows``; on
+        the CPU by ``preprocess_vectors`` in NumPy."""
         if fn.graph_ref() is not self.graph or \
                 fn.cfg != self.engine_spec(spec).canonical():
             raise ValueError("search_on: the engine was built for another "
                              "graph or spec")
-        queries = D.preprocess_vectors(
-            np.ascontiguousarray(queries, np.float32), self.graph.metric)
+        queries = D.prepare_queries(queries, self.graph.metric, fn.dev)
         cos_theta = spec.cos_theta
         if cos_theta is None:
             if self.profile is not None:

@@ -1069,6 +1069,10 @@ def build_search_fn(g: GraphIndex, cfg: SearchSpec, tombstones: bool = False,
     # router companion tables (finger's signatures) upgrade it the same
     # lazy way the first time the router searches this graph
     rt.prepare(g, arrays)
+    if dev.type == "cuda" and g.metric == "cosine":
+        # search_on normalises a cosine batch on the card
+        # (distances.prepare_queries): its library loads, or builds, here
+        build.load("normalize_rows")
     engine = SearchEngine(g, arrays, cfg, tombstones, dev)
     with _CACHE_LOCK:
         hit = _ENGINE_CACHE.get(key)

@@ -363,8 +363,7 @@ class ShardedAnnIndex:
         # MutableShardedAnnIndex's host composition degrades instead)
         fault.hit("sharded.search")
         fn = self._step(spec)
-        q = D.preprocess_vectors(np.ascontiguousarray(queries, np.float32),
-                                 self.arrays.metric)
+        q = D.prepare_queries(queries, self.arrays.metric)
         # precedence: spec override > profiled shard median
         ct = spec.cos_theta
         if ct is None:

@@ -19,6 +19,10 @@ launches are counted besides (``thread_launch_counts``).  A launch issued
 while a CUDA graph is captured runs nothing then: ``recording_launches``
 collects those instead, and ``add_launches`` counts them again at each
 replay of the graph.
+
+``normalize_rows`` (a cosine index's query rows, ``kernels/normalize_rows.py``)
+is exposed here too; it runs outside the hop loop and counts its launches
+in its own module's ``LAUNCHES``, as ``segment_sum`` does.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.kernels.normalize_rows import normalize_rows  # noqa: F401
 
 LAUNCHES: Dict[str, int] = {"fused_expand": 0, "pool_merge": 0,
                             "sq8_distance": 0, "gather_distance": 0,

@@ -193,3 +193,15 @@ def segment_sum_ref(data, seg_ids, num_segments: int):
                       device=data.device)
     out.index_add_(0, seg_ids.reshape(-1).long(), rows.to(acc))
     return out.to(data.dtype).reshape((num_segments,) + tail)
+
+
+def normalize_rows_ref(x):
+    """``x [B, d]`` float32, each row divided by ``max(|row|_2, 1e-12)``:
+    NumPy's cosine preprocessing (``core/distances.py``
+    ``preprocess_vectors``) in float32, with the squares summed in the
+    kernels' order (``warp_order_sum``) and the root correctly rounded
+    (taken in float64 and rounded once, as ``__fsqrt_rn`` rounds it: torch's
+    float32 ``sqrt`` on the CPU is not), so that ``csrc/normalize_rows.cu``
+    equals this bit for bit.  A NaN norm stays NaN."""
+    norm = torch.sqrt(warp_order_sum(x * x).double()).float()[:, None]
+    return x / torch.clamp_min(norm, 1e-12)

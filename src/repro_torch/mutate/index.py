@@ -398,8 +398,7 @@ class MutableAnnIndex:
         g = snap.index.graph
         spec = resolve_search_spec(spec, self.default_spec,
                                    "MutableAnnIndex.search")
-        q = D.preprocess_vectors(np.ascontiguousarray(queries, np.float32),
-                                 g.metric)
+        q = D.prepare_queries(queries, g.metric)
         cos_theta = self._resolve_cos_theta(spec, snap)
         k = spec.k
         cfg = dataclasses.replace(

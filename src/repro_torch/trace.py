@@ -9,7 +9,9 @@ Counters are always on:
   seconds, and counts: the hop iterations captured as CUDA graphs
   (``search.graph_captures``), the lanes the router pruned and the lanes
   that took a first-stage distance, exact or SQ8 (``search.pruned``,
-  ``search.first_stage``: ``core/index.py``'s ``search_on``), and the angle
+  ``search.first_stage``: ``core/index.py``'s ``search_on``), the query
+  rows of a cosine index normalised on the card (``search.normalised_rows``:
+  ``search_on``), and the angle
   profile's queries and samples (``profile.queries``, ``profile.samples``:
   ``core/angles.py``);
 * a log of the last ``CALL_LOG_MAX`` search engine calls (``calls``), one
